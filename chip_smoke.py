@@ -7,11 +7,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device: find the card (raise without one) and print
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
-2. build: compile both kernels from hdpgpc_torch/csrc with nvcc and
-   print the build seconds and the registers / shared memory that
-   ``-Xptxas -v`` reports per kernel;
-3. kernels: each kernel against its plain PyTorch version and against a
-   float64 truth, at the refit's shapes, with CUDA-event timings;
+2. build: compile both kernels from hdpgpc_torch/csrc with nvcc (one
+   process per source, in parallel) and print the build seconds and the
+   registers / shared memory that ``-Xptxas -v`` reports per kernel;
+3. kernels: kernel B against its plain PyTorch version and a float64
+   truth at (16, 90, 90), (8, 128, 128), (4, 200, 200) and
+   (2, 300, 300), kernel A (with the noise fused in) against its plain
+   version at T = 90 and 256, both dtypes; at the refit's shapes each
+   kernel's eager time (``ms``), its device time from a replayed CUDA
+   graph (``device_ms``), the plain version's time, one
+   ``torch.linalg.solve`` call's (kernel B's ``library_ms``) and the
+   bound from the shapes (``hdpgpc_torch/utils/kernel_timing.py``);
 4. slice: ``HDPGPC.include_batch`` on 2272 synthetic beats of T = 90
    (record 100's shape), float32, estimation_limit=1000, on the card,
    with launch counts of both kernels from that run alone;
@@ -46,6 +52,9 @@ SOLVE_BAR = {"float64": 1e-10, "float32": 2e-3}
 # kernel A: max |K - K_plain| / (|K_plain| + 1e-30 * c)
 GRAM_BAR = {"float64": 1e-13, "float32": 1e-6}
 SLICE_EST_LIMIT = 1000
+# kernel B's check shapes (n, T), R = T: the refit's (4 J <= 16, 90),
+# and above what the unblocked kernel of the first slice took (T > 128)
+SOLVE_SHAPES = ((16, 90), (8, 128), (4, 200), (2, 300))
 
 
 def _say(phase: str, msg: str) -> None:
@@ -71,8 +80,8 @@ def phase_build():
         _say("build", f"source {os.path.relpath(p, ROOT)}")
     _build.load()
     info = _build.BUILD_INFO
-    _say("build", f"nvcc {info['seconds']:.2f} s -> "
-         f"{os.path.relpath(info['path'], ROOT)}")
+    _say("build", f"nvcc {info['seconds']:.2f} s -> " + ", ".join(
+        os.path.relpath(p, ROOT) for p in info["paths"]))
     fn = None
     for ln in str(info["ptxas"]).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -85,20 +94,6 @@ def phase_build():
         elif "Used" in ln and fn:
             _say("build", f"{fn}: {ln.strip()}")
     return info
-
-
-def _events_ms(torch, fn, reps=200, warm=10):
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def _spd_inputs(np, n, T, seed, cond):
@@ -122,9 +117,21 @@ def _truth(np, A, B):
     return x
 
 
+def _timings(fn, plain, library, bound):
+    from hdpgpc_torch.utils.kernel_timing import device_ms, events_ms
+    bms, by = bound
+    return dict(ms=events_ms(fn), device_ms=device_ms(fn),
+                device_ms_method="cuda_graph",
+                plain_ms=events_ms(plain),
+                library_ms=None if library is None else events_ms(library),
+                bound_ms=bms, bound_by=by)
+
+
 def phase_kernels(torch, np):
-    from hdpgpc_torch.ops.kernels import fused_rbf_gram, rbf_gram
+    from hdpgpc_torch.ops.kernels import KernelParams, gram, rbf_gram_noise
     from hdpgpc_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from hdpgpc_torch.utils.kernel_timing import (rbf_gram_bound,
+                                                  spd_solve_bound)
     dev = torch.device("cuda")
     rec = {}
     # ---- kernel B ----
@@ -132,9 +139,11 @@ def phase_kernels(torch, np):
     # tests/test_pallas_chol.py:29-47 (kernel must meet SOLVE_BAR);
     # cond=0.05: the near-singular ones of :50-64, where no Cholesky
     # solve meets those bars (the plain one neither), so the kernel is
-    # held to twice the plain version's error there
+    # held to twice the plain version's error there. T = 200 and 300 go
+    # through the kernel's scratch-buffer path (the factor does not fit
+    # in shared memory)
     for cond in (5.0, 0.05):
-        for (n, T) in ((16, 90), (8, 128)):
+        for (n, T) in SOLVE_SHAPES:
             spd64, rhs64 = _spd_inputs(np, n, T, n + T, cond)
             for dname, ndt in (("float64", np.float64),
                                ("float32", np.float32)):
@@ -163,40 +172,49 @@ def phase_kernels(torch, np):
                     raise AssertionError(
                         f"spd_solve {dname} ({n},{T}) cond {cond} err {err}")
                 if (n, T, cond) == (16, 90, 5.0):
-                    ms = _events_ms(torch, lambda: spd_solve(spd, rhs))
-                    pms = _events_ms(torch,
-                                     lambda: spd_solve_plain(spd, rhs))
-                    _say("kernels", f"spd_solve (16,90,90) {dname}: kernel "
-                         f"{ms:.4f} ms, plain {pms:.4f} ms")
-                    rec[f"spd_solve_{dname}"] = dict(max_abs_err=dkp, ms=ms,
-                                                     plain_ms=pms)
-    # ---- kernel A ----
+                    t = _timings(
+                        lambda: spd_solve(spd, rhs),
+                        lambda: spd_solve_plain(spd, rhs),
+                        lambda: torch.linalg.solve(spd, rhs),
+                        spd_solve_bound(n, T, T, spd.dtype))
+                    _say("kernels", f"spd_solve (16,90,90) {dname}: " +
+                         _fmt_times(t))
+                    rec[f"spd_solve_{dname}"] = dict(max_abs_err=dkp, **t)
+    # ---- kernel A: gram with the noise on the diagonal, one launch ----
     for T in (90, 256):
         for dname, dt in (("float64", torch.float64),
                           ("float32", torch.float32)):
             x = torch.arange(T, dtype=dt, device=dev)
-            c = torch.tensor(300.0, dtype=dt, device=dev)
-            ls = torch.tensor(1.2, dtype=dt, device=dev)
-            K = fused_rbf_gram(x, x, c, ls)
+            p = KernelParams(*[torch.tensor(v, dtype=dt, device=dev)
+                               for v in (300.0, 1.2, 0.05)])
+            K = gram(p, x)
             torch.cuda.synchronize()
-            Kp = rbf_gram(x, x, c, ls)
+            Kp = rbf_gram_noise(x, x, *p)
             torch.cuda.synchronize()
             Kd, Kpd = K.double(), Kp.double()
             rel = float(((Kd - Kpd).abs() / (Kpd.abs() + 1e-30 * 300.0))
                         .max())
             dkp = float((Kd - Kpd).abs().max())
-            _say("kernels", f"rbf_gram T={T} {dname}: max rel err vs plain "
-                 f"{rel:.3e} (bar {GRAM_BAR[dname]:.0e}), max abs {dkp:.3e}")
+            _say("kernels", f"gram (rbf_gram + noise) T={T} {dname}: max "
+                 f"rel err vs plain {rel:.3e} (bar {GRAM_BAR[dname]:.0e}), "
+                 f"max abs {dkp:.3e}")
             if not rel <= GRAM_BAR[dname]:
                 raise AssertionError(f"rbf_gram {dname} T={T} rel {rel}")
             if T == 90:
-                ms = _events_ms(torch, lambda: fused_rbf_gram(x, x, c, ls))
-                pms = _events_ms(torch, lambda: rbf_gram(x, x, c, ls))
-                _say("kernels", f"rbf_gram T=90 {dname}: kernel {ms:.4f} "
-                     f"ms, plain {pms:.4f} ms")
-                rec[f"rbf_gram_{dname}"] = dict(max_abs_err=dkp, ms=ms,
-                                                plain_ms=pms)
+                t = _timings(lambda: gram(p, x),
+                             lambda: rbf_gram_noise(x, x, *p), None,
+                             rbf_gram_bound(T, T, dt))
+                _say("kernels", f"gram T=90 {dname}: " + _fmt_times(t))
+                rec[f"rbf_gram_{dname}"] = dict(max_abs_err=dkp, **t)
     return rec
+
+
+def _fmt_times(t):
+    lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    return (f"kernel {t['ms']:.4f} ms eager, {t['device_ms']:.4f} ms on "
+            f"the device ({t['device_ms_method']}), plain "
+            f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
 
 
 def _model(HDPGPC, y, est, dtype, device):
@@ -328,7 +346,7 @@ def main(argv=None):
                          "hdpgpc_tpu/ops/pallas/chol_solve.py:295"),
            "rbf_gram": ("hdpgpc_torch/csrc/rbf_gram.cu",
                         "hdpgpc_tpu/ops/pallas/gram.py:44")}
-    # ms / plain_ms / max_abs_err at the main path's dtype (float32);
+    # the timings and max_abs_err at the main path's dtype (float32);
     # the float64 numbers ride along under "float64"
     kernels = []
     for name in src:

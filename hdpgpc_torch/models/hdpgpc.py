@@ -11,7 +11,8 @@ reference; every heavy step runs on the model's device:
 * kernel hyperparameter fits: models/kernel_fit (memoised per seed beat);
 * HDP stick-breaking (tiny, host numpy): ops/stick_breaking.
 
-``device`` is explicit: "cpu" or "cuda" (which raises without a card).
+``device`` defaults to "cuda" and raises without a card; "cpu" runs the
+kernels' plain versions.
 The offline sweep ``include_batch`` without warp is what this package
 runs today; the rest of the reference's surface raises
 ``NotImplementedError`` naming its ROADMAP item.
@@ -29,6 +30,7 @@ import torch
 
 from hdpgpc_torch.config import GPConfig, HDPConfig, ModelConfig, WarpConfig
 from hdpgpc_torch.data.priors import redefine_default_priors
+from hdpgpc_torch.device import DEFAULT_DEVICE, resolve_device
 from hdpgpc_torch.models import gplds
 from hdpgpc_torch.models.gplds import ClusterState
 from hdpgpc_torch.models.kernel_fit import fit_kernel, fit_kernel_batch
@@ -46,16 +48,6 @@ _GLOBAL_KERNEL_FITS: Dict[tuple, KernelParams] = {}
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported to hdpgpc_torch yet "
                               f"(ROADMAP {item})")
-
-
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' was asked for, but torch sees no "
-                           "CUDA device")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class Cluster:
@@ -121,7 +113,8 @@ class HDPGPC:
                  reduce_outputs: bool = False,
                  reduce_outputs_ratio: float = 1.0,
                  hdp_hyp: str = "balanced", compute_dtype: str = "float64",
-                 config: Optional[ModelConfig] = None, device="cpu",
+                 config: Optional[ModelConfig] = None,
+                 device=DEFAULT_DEVICE,
                  **_ignored):
         if config is None:
             gp_cfg = GPConfig(

@@ -29,6 +29,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from hdpgpc_torch.device import DEFAULT_DEVICE, resolve_device
 from hdpgpc_torch.ops import linalg
 from hdpgpc_torch.ops.kernels import KernelParams
 
@@ -110,7 +111,7 @@ def _adam_fit(x, Ys, n_lb, n_ub, max_iters: int, lr: float):
 def fit_kernel(x_basis, y, bound_sigma: Tuple[float, float],
                pin_lengthscale: float = 1.2, max_iters: int = 4000,
                lr: float = 0.1, dtype=torch.float64,
-               device="cpu") -> KernelParams:
+               device=DEFAULT_DEVICE) -> KernelParams:
     """Fit (outputscale, lengthscale, noise) on one beat; lengthscale is
     pinned on write-back (GPI.py:711). x_basis: (T,) or (T, 1); y: (T,)."""
     return fit_kernel_batch(x_basis, np.array(y).reshape(1, -1),
@@ -122,9 +123,10 @@ def fit_kernel(x_basis, y, bound_sigma: Tuple[float, float],
 def fit_kernel_batch(x_basis, Ys, bound_sigma: Tuple[float, float],
                      pin_lengthscale: float = 1.2, max_iters: int = 4000,
                      lr: float = 0.1, dtype=torch.float64,
-                     device="cpu") -> List[KernelParams]:
+                     device=DEFAULT_DEVICE) -> List[KernelParams]:
     """fit_kernel over B seed beats Ys (B, T) at once; each lane equals
     its solo fit. Returns B KernelParams of 0-d tensors on ``device``."""
+    device = resolve_device(device)
     x = torch.as_tensor(x_basis, dtype=dtype, device=device).reshape(-1)
     Ys = torch.as_tensor(np.array(Ys), dtype=dtype, device=device).reshape(
         -1, x.shape[0])

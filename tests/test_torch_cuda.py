@@ -11,8 +11,10 @@ import torch
 # suite runs one process per core
 torch.set_num_threads(1)
 
-from hdpgpc_torch.ops.kernels import fused_rbf_gram, rbf_gram
-from hdpgpc_torch.ops.spd_solve import spd_solve, spd_solve_plain
+from hdpgpc_torch.ops.kernels import (KernelParams, fused_rbf_gram, gram,
+                                      rbf_gram, rbf_gram_noise)
+from hdpgpc_torch.ops.spd_solve import (spd_solve, spd_solve_blocked_plain,
+                                        spd_solve_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -32,7 +34,9 @@ def _spd(n, T, seed, cond=5.0):
 
 
 @pytest.mark.parametrize("n,T,R", [(16, 90, 90), (8, 128, 128), (3, 5, 2),
-                                   (40, 33, 70), (2, 128, 300)])
+                                   (40, 33, 70), (2, 128, 300),
+                                   (4, 200, 200), (2, 300, 7),
+                                   (1, 480, 3), (1, 900, 2)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 2e-3)])
 def test_spd_solve_kernel_matches_plain(cuda, n, T, R, dtype, tol):
@@ -58,17 +62,33 @@ def test_spd_solve_kernel_nan_on_failure_and_checks(cuda):
     b = torch.tensor(rhs, device=cuda)
     X = spd_solve(a, b).cpu().numpy()
     assert np.isnan(X[2]).all() and np.isfinite(np.delete(X, 2, 0)).all()
-    # the kernel's own limit, which the wrapper reads
+    # no T limit: above what shared memory holds the kernel factors in a
+    # scratch buffer that the wrapper allocates
     from hdpgpc_torch.ops import _build
-    assert _build.load().spd_solve_max_t() == 128
-    with pytest.raises(ValueError):
-        spd_solve(torch.zeros((1, 129, 129), device=cuda, dtype=torch.float64),
-                  torch.zeros((1, 129, 129), device=cuda,
-                              dtype=torch.float64))
+    lib = _build.load()
+    assert lib.spd_solve_work_f64(90, 90) == 0
+    assert lib.spd_solve_work_f32(192, 192) == 0
+    assert lib.spd_solve_work_f64(300, 7) == 320 * 320
+    # and where not even one 32-column chunk of the right-hand side fits
+    # beside it, the chunk buffers move there too
+    assert lib.spd_solve_work_f64(480, 3) == 480 * 480 + 2 * 480 * 32
     with pytest.raises(ValueError):
         spd_solve(a.transpose(1, 2), b)
     with pytest.raises(TypeError):
         spd_solve(a.float(), b)
+
+
+@pytest.mark.parametrize("n,T,R", [(16, 90, 90), (2, 300, 7)])
+def test_spd_solve_kernel_matches_blocked_mirror(cuda, n, T, R):
+    """The kernel against its step-by-step mirror in PyTorch, float64:
+    the same algorithm, rounded in another order (1e-11 relative)."""
+    spd, rhs = _spd(n, T, 7 * T)
+    rhs = np.ascontiguousarray(np.resize(rhs, (n, T, R)))
+    a = torch.tensor(spd, device=cuda)
+    b = torch.tensor(rhs, device=cuda)
+    X = spd_solve(a, b)
+    Xm = spd_solve_blocked_plain(a, b)
+    assert ((X - Xm).abs() / (Xm.abs() + 1e-3)).max().item() < 1e-11
 
 
 @pytest.mark.parametrize("T1,T2", [(90, 90), (256, 256), (7, 300)])
@@ -92,7 +112,6 @@ def test_refit_on_card_matches_cpu(cuda):
     """One float64 refit through kernel B on the card against the CPU
     (plain) refit: scores to 1e-9 relative."""
     from hdpgpc_torch.models import gplds
-    from hdpgpc_torch.ops.kernels import KernelParams
     T, N = 30, 50
     rng = np.random.default_rng(9)
     Y = np.sin(np.linspace(0, 6, T))[None] + 0.1 * rng.standard_normal(
@@ -111,3 +130,20 @@ def test_refit_on_card_matches_cpu(cuda):
     for f in ("q", "q_lat", "snr", "lds"):
         x, y = getattr(a, f).cpu().numpy(), getattr(b, f).numpy()
         assert np.max(np.abs(x - y)) <= 1e-9 * np.max(np.abs(y)), f
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gram_noise_fused_in_one_launch(cuda, dtype):
+    """gram with the white noise: one launch of kernel A, equal to the
+    plain rbf_gram + noise * eye to the last bit."""
+    x = torch.arange(90, dtype=dtype, device=cuda)
+    p = KernelParams(*[torch.tensor(v, dtype=dtype, device=cuda)
+                       for v in (300.0, 1.2, 0.05)])
+    before = fused_rbf_gram.launches
+    K = gram(p, x)
+    torch.cuda.synchronize()
+    assert fused_rbf_gram.launches == before + 1
+    Kp = rbf_gram_noise(x, x, *p)
+    assert torch.equal(K, Kp)
+    assert torch.equal(gram(p, x, x), rbf_gram(x, x, p.outputscale,
+                                                p.lengthscale))

@@ -27,7 +27,8 @@ def _model(cls, y, **kw):
     m = cls(default_x_basis(T), n_outputs=1, ini_gamma=std_dif,
             ini_sigma=std, ini_outputscale=10.0, bound_sigma=bs,
             bound_gamma=bg, max_models=100, reestimate_initial_params=True,
-            n_explore_steps=2, compute_dtype="float32", **kw)
+            n_explore_steps=2, compute_dtype="float32", device="cpu",
+            **kw)
     m.cfg = dataclasses.replace(m.cfg, gp=dataclasses.replace(
         m.cfg.gp, kernel_fit_iters=200, kernel_fit_iters_f32=200))
     return m

@@ -102,7 +102,7 @@ def test_fit_kernel_matches_jax(max_iters):
     bounds = (1e-4, 10.0)
     pj = jkf.fit_kernel(x, y, bounds, max_iters=max_iters, dtype=jnp.float64)
     pt = tkf.fit_kernel(x, y, bounds, max_iters=max_iters,
-                        dtype=torch.float64)
+                        dtype=torch.float64, device="cpu")
     for f in ("outputscale", "lengthscale", "noise"):
         a, b = float(getattr(pt, f)), float(getattr(pj, f))
         assert abs(a - b) <= 1e-8 * abs(b), (f, a, b)
@@ -116,9 +116,9 @@ def test_fit_kernel_batch_matches_jax_and_solo():
     pj = jkf.fit_kernel_batch(x, Ys, bounds, max_iters=400,
                               dtype=jnp.float64)
     pt = tkf.fit_kernel_batch(x, Ys, bounds, max_iters=400,
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
     solo = tkf.fit_kernel(x, Ys[1], bounds, max_iters=400,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     for a, b in zip(pt, pj):
         for f in ("outputscale", "noise"):
             va, vb = float(getattr(a, f)), float(getattr(b, f))

@@ -10,7 +10,8 @@ import torch
 
 from hdpgpc_torch.ops import linalg as tl
 from hdpgpc_torch.ops import kernels as tk
-from hdpgpc_torch.ops.spd_solve import spd_solve, spd_solve_plain
+from hdpgpc_torch.ops.spd_solve import (spd_solve, spd_solve_blocked_plain,
+                                        spd_solve_plain)
 from hdpgpc_tpu.ops import kernels as jk
 from hdpgpc_tpu.ops import linalg as jl
 
@@ -118,6 +119,56 @@ def test_spd_solve_plain_matches_jax_cho_solve():
     bad[3] = -bad[3]
     Xb = spd_solve_plain(torch.tensor(bad), torch.tensor(rhs)).numpy()
     assert np.isnan(Xb[3]).all() and np.isfinite(np.delete(Xb, 3, 0)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gram_noise_fused_matches_jax(dtype):
+    """Kernel A's plain version with the noise in the same call equals
+    the one-argument JAX gram (noise on the diagonal) and the port's
+    gram, which routes through it."""
+    T = 90
+    x = np.arange(T, dtype=np.float64)
+    th = (300.0, 1.2, 0.05)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    Kj = np.asarray(jk.gram(jk.KernelParams(*[jnp.asarray(v, jdt)
+                                              for v in th]),
+                            jnp.asarray(x, jdt)))
+    p = tk.KernelParams(*[torch.tensor(v, dtype=dtype) for v in th])
+    xt = torch.tensor(x, dtype=dtype)
+    Kf = tk.fused_rbf_gram(xt, xt, *p).numpy()
+    np.testing.assert_array_equal(Kf, tk.gram(p, xt).numpy())
+    bar = 1e-13 if dtype == torch.float64 else 1e-6
+    assert np.max(np.abs(Kf - Kj) / (np.abs(Kj) + 1e-30 * 300.0)) <= bar
+
+
+@pytest.mark.parametrize("T", [5, 33, 90, 128, 200])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-3)])
+def test_spd_solve_blocked_plain_matches_jax(T, dtype, bar):
+    """Kernel B's algorithm, step by step in torch (panels of 32,
+    identity padding, inverted diagonal blocks, blocked substitutions),
+    against JAX cholesky + cho_solve in float64 on the same (rounded)
+    inputs: max |X - X_j| / (|X_j| + 1e-3) <= 1e-10 in float64, 2e-3 in
+    float32, on the well-conditioned Kalman-magnitude systems (diagonal
+    5.0) of tests/test_pallas_chol.py:29-47; NaN over a system whose
+    factorisation fails."""
+    rng = np.random.default_rng(T)
+    n = 4 if T < 128 else 2
+    spd = _spd(rng, n, T, cond=5.0)
+    rhs = rng.standard_normal((n, T, T)) * 12.0
+    spd[1] = -spd[1]
+    a = torch.tensor(spd, dtype=dtype)
+    b = torch.tensor(rhs, dtype=dtype)
+    X = spd_solve_blocked_plain(a, b).double().numpy()
+    A64, B64 = a.double().numpy(), b.double().numpy()
+    L = jnp.linalg.cholesky(jnp.asarray(A64))
+    Xj = np.asarray(jnp.stack([jsl.cho_solve((L[i], True),
+                                             jnp.asarray(B64[i]))
+                               for i in range(n)]))
+    assert np.isnan(X[1]).all()
+    good = [i for i in range(n) if i != 1]
+    err = np.max(np.abs(X[good] - Xj[good]) / (np.abs(Xj[good]) + 1e-3))
+    assert err <= bar, err
 
 
 def test_spd_solve_wrapper_rejects_mixed_devices():

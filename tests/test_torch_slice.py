@@ -32,7 +32,7 @@ def _sweep(cls, y, est_limit, dtype="float64"):
             hmm_switch=True, max_models=100, bayesian_params=True,
             reestimate_initial_params=True, n_explore_steps=3,
             free_deg_MNIV=5, estimation_limit=est_limit,
-            compute_dtype=dtype)
+            compute_dtype=dtype, device="cpu")
     m.cfg = dataclasses.replace(m.cfg, gp=dataclasses.replace(
         m.cfg.gp, kernel_fit_iters=300))
     x = np.tile(np.arange(T, dtype=np.float64), (y.shape[0], 1))

@@ -3,8 +3,12 @@
     python3 tools/torch_profile_sweep.py [--beats 2272] [--est 1000]
         [--dtype float32] [--warm 1] [--no-refit-profile] [--no-kernels]
 
-1. kernels: kernel B (spd_solve) and kernel A (rbf_gram) against their
-   plain versions at a few shapes, CUDA-event times over 200 launches;
+1. kernels: kernel B (spd_solve) at five shapes and kernel A (gram with
+   the noise fused in) at T = 90, both dtypes: eager CUDA-event time
+   over 200 launches (``ms``), device time of 200 launches replayed from
+   a CUDA graph (``device_ms``), the plain version's time, one
+   ``torch.linalg.solve`` call's (kernel B), and the bound from the
+   shapes (hdpgpc_torch/utils/kernel_timing.py);
 2. phases: ``HDPGPC.include_batch`` on synthetic beats at record 100's
    shape in chip_smoke.py's slice configuration, once cold and ``--warm``
    times more (the kernel fits are memoised process-wide, so a later run
@@ -43,10 +47,14 @@ from hdpgpc_torch.data.loader import (default_x_basis,  # noqa: E402
                                       synthetic_beats)
 from hdpgpc_torch.data.priors import compute_estimators_lds  # noqa: E402
 from hdpgpc_torch.models.hdpgpc import HDPGPC  # noqa: E402
-from hdpgpc_torch.ops.kernels import fused_rbf_gram, rbf_gram  # noqa: E402
+from hdpgpc_torch.ops.kernels import (KernelParams, gram,  # noqa: E402
+                                      rbf_gram_noise)
 from hdpgpc_torch.ops.spd_solve import (spd_solve,  # noqa: E402
                                         spd_solve_plain)
 from hdpgpc_torch.utils.eval import classification_error  # noqa: E402
+from hdpgpc_torch.utils.kernel_timing import (device_ms,  # noqa: E402
+                                              events_ms, rbf_gram_bound,
+                                              spd_solve_bound)
 
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = {"refit": ("_full_refit_batch_raw",),
@@ -59,18 +67,13 @@ SOLVE_SHAPES = ((16, 90, 90), (16, 90, 1), (1, 90, 90), (16, 32, 32),
                 (16, 128, 128))
 
 
-def _events_ms(fn, reps=200, warm=10):
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+def _row(what, fn, plain, library, bound):
+    bms, by = bound
+    lib = "n/a" if library is None else f"{events_ms(library):.4f} ms"
+    print(f"[kernels] {what}: kernel {events_ms(fn):.4f} ms eager, "
+          f"{device_ms(fn):.4f} ms on the device (cuda_graph), plain "
+          f"{events_ms(plain):.4f} ms, torch.linalg.solve {lib}, bound "
+          f"{bms:.6f} ms ({by})", flush=True)
 
 
 def bench_kernels(dev):
@@ -82,17 +85,17 @@ def bench_kernels(dev):
                                   * 37.0, dtype=dt, device=dev)
             rhs = torch.as_tensor(rng.standard_normal((n, T, R)) * 12.0,
                                   dtype=dt, device=dev)
-            ms = _events_ms(lambda: spd_solve(spd, rhs))
-            pms = _events_ms(lambda: spd_solve_plain(spd, rhs))
-            print(f"[kernels] spd_solve ({n},{T},{R}) {dt}: kernel {ms:.4f} "
-                  f"ms, plain {pms:.4f} ms", flush=True)
+            _row(f"spd_solve ({n},{T},{R}) {dt}",
+                 lambda: spd_solve(spd, rhs),
+                 lambda: spd_solve_plain(spd, rhs),
+                 lambda: torch.linalg.solve(spd, rhs),
+                 spd_solve_bound(n, T, R, dt))
         x = torch.arange(90, dtype=dt, device=dev)
-        c = torch.tensor(300.0, dtype=dt, device=dev)
-        ls = torch.tensor(1.2, dtype=dt, device=dev)
-        ms = _events_ms(lambda: fused_rbf_gram(x, x, c, ls))
-        pms = _events_ms(lambda: rbf_gram(x, x, c, ls))
-        print(f"[kernels] rbf_gram T=90 {dt}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms", flush=True)
+        p = KernelParams(*[torch.tensor(v, dtype=dt, device=dev)
+                           for v in (300.0, 1.2, 0.05)])
+        _row(f"gram (rbf_gram + noise) T=90 {dt}", lambda: gram(p, x),
+             lambda: rbf_gram_noise(x, x, *p), None,
+             rbf_gram_bound(90, 90, dt))
 
 
 class PhaseTimer:
