@@ -21,9 +21,19 @@ Phases (each prints a line; any failure raises and exits non-zero):
 4. slice: ``HDPGPC.include_batch`` on 2272 synthetic beats of T = 90
    (record 100's shape), float32, estimation_limit=1000, on the card,
    with launch counts of both kernels from that run alone;
-5. parity: the same sweep in float64 on the first 300 beats, on the
+5. parity: the same sweep in float64 on the first 200 beats, on the
    card (kernels) and on the CPU (plain versions): identical partitions
-   in every sweep, equal M, ELBO equal to 1e-8 relative.
+   in every sweep, equal M, ELBO equal to 1e-8 relative;
+6. online: the fused stream engine (models/stream_online.py) at
+   bench.py's online settings (K = 16 slots, chunk 32, float32, HDP
+   refresh per chunk) on 800 beats of the growth stream
+   (one new morphology every 200 beats), the first 96 beats an untimed
+   warm-up: beats/s, M, births, the majority-label error against the
+   generating labels, and each kernel's launches in the timed part;
+7. online_parity: the engine in float64 at chunk 1 on the first 230
+   beats (the first birth is at beat 200), and include_sample_fast on
+   the first 100, each on the card and on the CPU: identical partitions
+   and M, the engine's accounting sums equal to 1e-8 relative.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Logs of the sweeps go to
@@ -44,7 +54,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "slice", "parity")
+PHASES = ("device", "build", "kernels", "slice", "parity", "online",
+          "online_parity")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 # kernel B: max |X - X64| / (|X64| + 1e-3) against a float64 truth
@@ -52,9 +63,23 @@ SOLVE_BAR = {"float64": 1e-10, "float32": 2e-3}
 # kernel A: max |K - K_plain| / (|K_plain| + 1e-30 * c)
 GRAM_BAR = {"float64": 1e-13, "float32": 1e-6}
 SLICE_EST_LIMIT = 1000
-# kernel B's check shapes (n, T), R = T: the refit's (4 J <= 16, 90),
-# and above what the unblocked kernel of the first slice took (T > 128)
-SOLVE_SHAPES = ((16, 90), (8, 128), (4, 200), (2, 300))
+# the offline parity prefix: the first 200 beats reach the same M = 4 as
+# 300 in about 2/3 of the time
+PARITY_BEATS = 200
+# kernel B's check shapes (n, T), R = T: the refit's (4 J <= 16, 90);
+# the stream engine's absorb candidates (4 K = 64, 90), its commit
+# (4, 90) and birth (2, 90); and above what the unblocked kernel of the
+# first slice took (T > 128)
+SOLVE_SHAPES = ((16, 90), (64, 90), (4, 90), (2, 90), (8, 128), (4, 200),
+                (2, 300))
+# of these, the shapes the main paths launch, timed
+SOLVE_TIMED = ((16, 90), (64, 90), (4, 90), (2, 90))
+# the online phases: bench.py's engine settings on the growth stream
+GROWTH = dict(n=800, T=90, n_clusters=4, seed=7, start_beat=0,
+              interval=200)
+ONLINE_K, ONLINE_CHUNK, ONLINE_WARM = 16, 32, 96
+ONLINE_MAX_ERR = 0.02
+PARITY_ENGINE_BEATS, PARITY_FAST_BEATS = 230, 100
 
 
 def _say(phase: str, msg: str) -> None:
@@ -171,15 +196,17 @@ def phase_kernels(torch, np):
                 if not (math.isfinite(err) and err < bar):
                     raise AssertionError(
                         f"spd_solve {dname} ({n},{T}) cond {cond} err {err}")
-                if (n, T, cond) == (16, 90, 5.0):
+                if (n, T) in SOLVE_TIMED and cond == 5.0:
                     t = _timings(
                         lambda: spd_solve(spd, rhs),
                         lambda: spd_solve_plain(spd, rhs),
                         lambda: torch.linalg.solve(spd, rhs),
                         spd_solve_bound(n, T, T, spd.dtype))
-                    _say("kernels", f"spd_solve (16,90,90) {dname}: " +
+                    _say("kernels", f"spd_solve ({n},{T},{T}) {dname}: " +
                          _fmt_times(t))
-                    rec[f"spd_solve_{dname}"] = dict(max_abs_err=dkp, **t)
+                    key = "spd_solve" if (n, T) == (16, 90) \
+                        else f"spd_solve_{n}x{T}x{T}"
+                    rec[f"{key}_{dname}"] = dict(max_abs_err=dkp, **t)
     # ---- kernel A: gram with the noise on the diagonal, one launch ----
     for T in (90, 256):
         for dname, dt in (("float64", torch.float64),
@@ -236,28 +263,43 @@ def _model(HDPGPC, y, est, dtype, device):
                   compute_dtype=dtype, device=device)
 
 
-def _sweep(torch, np, model, y, log_name):
-    x = np.tile(np.arange(y.shape[1], dtype=np.float64), (y.shape[0], 1))
+def _quiet(fn, log_name):
+    """Run ``fn`` with its printing sent to ``chiprun_out/<log_name>``."""
     buf = io.StringIO()
-    if model.device.type == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        model.include_batch(x, y, with_warp=False)
-    if model.device.type == "cuda":
-        torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+        out = fn()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, log_name), "w") as f:
         f.write(buf.getvalue())
-    return secs
+    return out
+
+
+def _counted(fn):
+    """Run ``fn`` with both kernels' launch counts set to 0 just before;
+    returns fn's result and the counts just after."""
+    from hdpgpc_torch.ops.kernels import fused_rbf_gram
+    from hdpgpc_torch.ops.spd_solve import spd_solve
+    spd_solve.launches = 0
+    fused_rbf_gram.launches = 0
+    out = fn()
+    return out, {"spd_solve": spd_solve.launches,
+                 "rbf_gram": fused_rbf_gram.launches}
+
+
+def _sweep(torch, np, model, y, log_name):
+    x = np.tile(np.arange(y.shape[1], dtype=np.float64), (y.shape[0], 1))
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _quiet(lambda: model.include_batch(x, y, with_warp=False), log_name)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def phase_slice(torch, np):
     from hdpgpc_torch.data.loader import synthetic_beats
     from hdpgpc_torch.models.hdpgpc import HDPGPC
-    from hdpgpc_torch.ops.kernels import fused_rbf_gram
-    from hdpgpc_torch.ops.spd_solve import spd_solve
     from hdpgpc_torch.utils.eval import classification_error
     y, z = synthetic_beats(2272, T=90, n_clusters=4, noise=0.05, seed=0)
     # estimation_limit: at 300 the births stop at M=2 on these beats
@@ -266,11 +308,8 @@ def phase_slice(torch, np):
     # identical partitions, as the repo's est-limit policy (raise the
     # limit on an est-divergent record) prescribes
     model = _model(HDPGPC, y, SLICE_EST_LIMIT, "float32", "cuda")
-    spd_solve.launches = 0
-    fused_rbf_gram.launches = 0
-    secs = _sweep(torch, np, model, y, "chip_smoke_slice.log")
-    launches = {"spd_solve": spd_solve.launches,
-                "rbf_gram": fused_rbf_gram.launches}
+    secs, launches = _counted(
+        lambda: _sweep(torch, np, model, y, "chip_smoke_slice.log"))
     sweeps = len(model.train_elbo)
     err, tot = classification_error(model, z)
     elbo = model.train_elbo[-1] if sweeps else float("nan")
@@ -292,14 +331,15 @@ def phase_parity(torch, np):
     from hdpgpc_torch.data.loader import synthetic_beats
     from hdpgpc_torch.models.hdpgpc import HDPGPC
     y, _z = synthetic_beats(2272, T=90, n_clusters=4, noise=0.05, seed=0)
-    y = y[:300]
+    y = y[:PARITY_BEATS]
     runs = {}
     for dev in ("cuda", "cpu"):
         m = _model(HDPGPC, y, 300, "float64", dev)
-        secs = _sweep(torch, np, m, y, f"chip_smoke_parity_{dev}.log")
+        secs, lc = _counted(lambda: _sweep(torch, np, m, y,
+                                           f"chip_smoke_parity_{dev}.log"))
         runs[dev] = m
         _say("parity", f"{dev}: sweeps {len(m.train_elbo)}, M {m.M}, "
-             f"{secs:.2f} s")
+             f"{secs:.2f} s, launches {lc}")
     a, b = runs["cuda"], runs["cpu"]
     same = (len(a.resp_assigned) == len(b.resp_assigned) and all(
         np.array_equal(p, q) for p, q in zip(a.resp_assigned,
@@ -311,6 +351,118 @@ def phase_parity(torch, np):
          f"max ELBO rel diff {rel:.3e}")
     if not (same and a.M == b.M and rel <= 1e-8):
         raise AssertionError("card and CPU sweeps disagree")
+
+
+def _growth_model(HDPGPC, y, dtype, device):
+    """The growth stress configuration (tests/test_stress_growth.py):
+    priors from the stream's first 256 beats, estimation_limit=50, at
+    most ONLINE_K clusters."""
+    import numpy as np
+    from hdpgpc_torch.data.loader import default_x_basis
+    w = y[:256]
+    std = float(np.std(w))
+    sd = float(np.std(np.diff(w, axis=0)))
+    return HDPGPC(default_x_basis(y.shape[1]), n_outputs=1,
+                  ini_lengthscale=3.0, bound_lengthscale=(1.0, 20.0),
+                  ini_gamma=sd, ini_sigma=std, ini_outputscale=4.0,
+                  bound_sigma=(std * 0.05, std * 0.2),
+                  bound_gamma=(sd * 0.05, sd * 0.2), verbose=False,
+                  hmm_switch=True, max_models=ONLINE_K,
+                  bayesian_params=True, estimation_limit=50,
+                  free_deg_MNIV=5, compute_dtype=dtype, device=device)
+
+
+def _majority_error(np, labels, z):
+    return int(sum(np.sum(labels == c) - np.bincount(z[labels == c]).max()
+                   for c in np.unique(labels)))
+
+
+def phase_online(torch, np):
+    from hdpgpc_torch.data.loader import synthetic_growth_stream
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    from hdpgpc_torch.models.stream_online import OnlineStreamEngine
+    y, z = synthetic_growth_stream(**GROWTH)
+    eng = OnlineStreamEngine(_growth_model(HDPGPC, y, "float32", "cuda"),
+                             K=ONLINE_K, chunk=ONLINE_CHUNK)
+    _quiet(lambda: eng.run(y[:ONLINE_WARM]), "chip_smoke_online_warm.log")
+    torch.cuda.synchronize()
+
+    def timed():
+        t0 = time.perf_counter()
+        _quiet(lambda: eng.run(y[ONLINE_WARM:]), "chip_smoke_online.log")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    secs, launches = _counted(timed)
+    timed = y.shape[0] - ONLINE_WARM
+    err = _majority_error(np, eng.labels(), z)
+    M = int(eng.carry.M)
+    sums = (float(eng.carry.q_sel_sum), float(eng.carry.qlat_sel_sum))
+    _say("online", f"{timed} beats timed in {secs:.3f} s: "
+         f"{timed / secs:.2f} beats/s; M {M}, births {sum(eng.births)}, "
+         f"error {err}/{y.shape[0]}, q_sel_sum {sums[0]:.6f}, "
+         f"qlat_sel_sum {sums[1]:.6f}, launches {launches} "
+         f"({launches['spd_solve'] / timed:.3f} kernel B per beat)")
+    if err > ONLINE_MAX_ERR * y.shape[0]:
+        raise AssertionError(f"online error {err}/{y.shape[0]} > 2%")
+    if M < 2:
+        raise AssertionError("no birth on the card (M < 2)")
+    if not all(math.isfinite(v) for v in sums):
+        raise AssertionError(f"non-finite accounting {sums}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+def phase_online_parity(torch, np):
+    from hdpgpc_torch.data.loader import synthetic_growth_stream
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    from hdpgpc_torch.models.stream_online import OnlineStreamEngine
+    y, _z = synthetic_growth_stream(**GROWTH)
+    eng = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        e = OnlineStreamEngine(_growth_model(HDPGPC, y, "float64", dev),
+                               K=ONLINE_K, chunk=1)
+        _, lc = _counted(lambda: _quiet(
+            lambda: e.run(y[:PARITY_ENGINE_BEATS]),
+            f"chip_smoke_online_parity_engine_{dev}.log"))
+        eng[dev] = e
+        _say("online_parity", f"engine {dev}: {PARITY_ENGINE_BEATS} beats "
+             f"in {time.perf_counter() - t0:.2f} s, M {int(e.carry.M)}, "
+             f"launches {lc}")
+    a, b = eng["cuda"], eng["cpu"]
+    rel = max(abs(float(getattr(a.carry, f)) - float(getattr(b.carry, f)))
+              / abs(float(getattr(b.carry, f)))
+              for f in ("q_sel_sum", "qlat_sel_sum"))
+    same = np.array_equal(a.labels(), b.labels())
+    _say("online_parity", f"engine: identical partitions {same}, M "
+         f"{int(a.carry.M)} vs {int(b.carry.M)}, accounting rel diff "
+         f"{rel:.3e}")
+    if not (same and int(a.carry.M) == int(b.carry.M) and rel <= 1e-8):
+        raise AssertionError("card and CPU engines disagree")
+    x = np.arange(y.shape[1], dtype=np.float64)
+    fast = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m = _growth_model(HDPGPC, y, "float64", dev)
+
+        def stream(m=m):
+            for i in range(PARITY_FAST_BEATS):
+                m.include_sample_fast(x, y[i], with_warp=False)
+        _, lc = _counted(lambda: _quiet(
+            stream, f"chip_smoke_online_parity_fast_{dev}.log"))
+        fast[dev] = m
+        _say("online_parity", f"include_sample_fast {dev}: "
+             f"{PARITY_FAST_BEATS} beats in "
+             f"{time.perf_counter() - t0:.2f} s, M {m.M}, launches {lc}")
+    a, b = fast["cuda"], fast["cpu"]
+    same = (a.M == b.M and len(a.resp_assigned) == len(b.resp_assigned)
+            and all(np.array_equal(p, q) for p, q in
+                    zip(a.resp_assigned, b.resp_assigned)))
+    _say("online_parity", f"include_sample_fast: identical partitions "
+         f"{same}, M {a.M} vs {b.M}")
+    if not same:
+        raise AssertionError("card and CPU include_sample_fast disagree")
 
 
 def main(argv=None):
@@ -332,31 +484,45 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     phase_device(torch)
-    # launches stay null ("not measured") unless the slice phase ran
-    rec, launches = {}, {"spd_solve": None, "rbf_gram": None}
+    # launches stay null ("not measured") where their phase did not run
+    rec = {}
+    launches = {k: {"offline": None, "online": None}
+                for k in ("spd_solve", "rbf_gram")}
     if "build" in phases or "kernels" in phases:
         phase_build()
     if "kernels" in phases:
         rec = phase_kernels(torch, np)
     if "slice" in phases:
-        launches = phase_slice(torch, np)
+        for k, v in phase_slice(torch, np).items():
+            launches[k]["offline"] = v
     if "parity" in phases:
         phase_parity(torch, np)
+    if "online" in phases:
+        for k, v in phase_online(torch, np).items():
+            launches[k]["online"] = v
+    if "online_parity" in phases:
+        phase_online_parity(torch, np)
     src = {"spd_solve": ("hdpgpc_torch/csrc/spd_solve.cu",
                          "hdpgpc_tpu/ops/pallas/chol_solve.py:295"),
            "rbf_gram": ("hdpgpc_torch/csrc/rbf_gram.cu",
                         "hdpgpc_tpu/ops/pallas/gram.py:44")}
-    # the timings and max_abs_err at the main path's dtype (float32);
-    # the float64 numbers ride along under "float64"
+    # the timings and max_abs_err at the main path's dtype (float32) and
+    # the offline refit's shape; the float64 numbers ride along under
+    # "float64", kernel B's other timed shapes under "shapes"
     kernels = []
     for name in src:
         if f"{name}_float32" not in rec:
             continue
-        kernels.append({"name": name, "route": "cuda",
-                        "source": src[name][0], "replaces": src[name][1],
-                        "launches": launches[name],
-                        **rec[f"{name}_float32"],
-                        "float64": rec[f"{name}_float64"]})
+        entry = {"name": name, "route": "cuda", "source": src[name][0],
+                 "replaces": src[name][1], "launches": launches[name],
+                 **rec[f"{name}_float32"],
+                 "float64": rec[f"{name}_float64"]}
+        if name == "spd_solve":
+            entry["shapes"] = {
+                f"{n}x{T}x{T}": {d: rec[f"spd_solve_{n}x{T}x{T}_{d}"]
+                                 for d in ("float32", "float64")}
+                for (n, T) in SOLVE_TIMED if (n, T) != (16, 90)}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

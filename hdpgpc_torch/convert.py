@@ -4,18 +4,24 @@ They take the JAX package's ``KernelParams``, ``MNIW`` and
 ``ClusterState`` with numpy leaves (``jax.device_get`` of the JAX
 objects; any NamedTuple with the same field names works) and build the
 port's, so that a test can feed both packages one state. This module
-imports no JAX. ``HDPGlobals`` (ops/stick_breaking.py) is numpy in both
-packages and needs no conversion.
+imports no JAX. ``stream_state_from_numpy`` does the same for the
+stream engine's carry, and ``online_caches_from_numpy`` copies a model's
+online caches and HDP globals (numpy in both packages), so that both
+packages can go on from one mid-stream state.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from hdpgpc_torch.models.gplds import ClusterState
 from hdpgpc_torch.models.mniw import MNIW
+from hdpgpc_torch.models.stream_online import StreamState
 from hdpgpc_torch.ops.kernels import KernelParams
+from hdpgpc_torch.ops.stick_breaking import HDPGlobals
 
 
 def _t(x, device, dtype):
@@ -50,3 +56,41 @@ def cluster_state_from_numpy(d, device="cpu", dtype=torch.float64
         else:
             fields[f] = _t(v, device, dtype)
     return ClusterState(**fields)
+
+
+_STREAM_INT = ("n", "last_t", "prev_state", "M_rho", "M", "t", "slot_uid",
+               "uid_next")
+
+
+def stream_state_from_numpy(d, device="cpu", dtype=torch.float64
+                            ) -> StreamState:
+    """The engine's carry: the (K, ...) cluster bank in ``dtype``, the
+    accounting in float64, counters and ids in int32, ``fitted`` bool."""
+    fields = {}
+    for f in StreamState._fields:
+        v = getattr(d, f)
+        if f == "states":
+            fields[f] = cluster_state_from_numpy(v, device, dtype)
+        elif f == "fitted":
+            fields[f] = _t(v, device, torch.bool)
+        elif f in _STREAM_INT:
+            fields[f] = _t(v, device, torch.int32)
+        else:
+            fields[f] = _t(v, device, torch.float64)
+    return StreamState(**fields)
+
+
+ONLINE_CACHES = ("q_last", "q_lat_last", "resp_last", "respPair_last",
+                 "T_count", "glob")
+
+
+def online_caches_from_numpy(d) -> dict:
+    """Copies of a model's online caches (``q_last``, ``q_lat_last``,
+    ``resp_last``, ``respPair_last``), its beat count and its HDP
+    globals, keyed by attribute name, to set on a port model."""
+    out = {f: np.array(getattr(d, f), np.float64)
+           for f in ONLINE_CACHES[:4]}
+    out["T_count"] = int(d.T_count)
+    out["glob"] = HDPGlobals(**{f.name: getattr(d.glob, f.name)
+                                for f in dataclasses.fields(HDPGlobals)})
+    return out

@@ -92,6 +92,41 @@ def synthetic_beats(n: int, T: int = 90, n_clusters: int = 4,
     return beats.astype(np.float64), z
 
 
+def synthetic_growth_stream(n, T, n_clusters, seed, start_beat,
+                            interval) -> Tuple[np.ndarray, np.ndarray]:
+    """Synthetic beats where cluster c only appears after beat
+    c * interval: a growth schedule, one new morphology every
+    ``interval`` beats (examples/run_stress_stream.py, copied so that
+    this package stands alone). Deterministic given (seed, start_beat).
+    Returns y (n, T) and the generating labels z (n,)."""
+    z_rng = np.random.default_rng(seed)
+    z = z_rng.integers(0, n_clusters, size=n)
+    # remap each beat's cluster into the currently-available set
+    avail = 1 + (start_beat + np.arange(n)) // interval
+    avail = np.minimum(avail, n_clusters)
+    z = z % avail
+    tmpl = growth_templates(T, n_clusters)
+    noise_rng = np.random.default_rng(seed + 1)
+    y = tmpl[z] + 0.03 * noise_rng.standard_normal((n, T))
+    return y.astype(np.float64), z
+
+
+def growth_templates(T, n_clusters) -> np.ndarray:
+    """Fixed bank of smoothed-random morphologies (unit curves scaled to
+    distinct amplitudes), near-orthogonal in R^T: every new morphology
+    is far from every committed cluster, the regime in which the online
+    birth rule (GPI_HDP.py:2464-2541) prefers birth over absorption.
+    Overlapping Gaussian bumps (``synthetic_beats``) make the same rule
+    absorb."""
+    g = np.exp(-0.5 * ((np.arange(-6, 7)) / 2.0) ** 2)
+    g /= g.sum()
+    raw = np.random.default_rng(0).standard_normal((n_clusters, T + 12))
+    sm = np.stack([np.convolve(r, g, mode="same")[6:6 + T] for r in raw])
+    sm /= np.linalg.norm(sm, axis=1, keepdims=True)
+    amps = np.random.default_rng(1).uniform(2.4, 6.0, n_clusters)
+    return sm * amps[:, None] * np.sqrt(T) / 3.0
+
+
 def segment_beats(signal: np.ndarray, annotations: np.ndarray,
                   window=(60, 150), r_offset: int = 87,
                   scale_type: str = "mean") -> np.ndarray:

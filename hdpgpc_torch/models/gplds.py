@@ -15,6 +15,9 @@ a per-job branch ``jnp.where(first, ...)`` becomes ``torch.where`` on a
 (J, 1, 1) mask. The reference's ``lax.scan`` loops are Python loops
 over the member slots; its associative scans use ``ops.scan``.
 
+The online single-sample primitives (``log_sq_error_last``,
+``estimate_new``, ``q_lat_tail``) sit at the end of the module.
+
 Every step's SPD systems {S_innov, P_pred, V_int, V_obs} are solved by
 ONE call, ``ops.spd_solve.spd_solve`` on (4 J, T, T): kernel B on the
 card. The other Choleskys (MNIW mean, the frozen tail, the scoring)
@@ -44,7 +47,7 @@ import torch
 from hdpgpc_torch.models import mniw as mniw_ops
 from hdpgpc_torch.models.mniw import MNIW
 from hdpgpc_torch.ops import linalg
-from hdpgpc_torch.ops.kalman import rts_pair
+from hdpgpc_torch.ops.kalman import LDSParams, kalman_step, rts_pair
 from hdpgpc_torch.ops.kernels import KernelParams, gram
 from hdpgpc_torch.ops.scan import associative_scan
 from hdpgpc_torch.ops.spd_solve import spd_solve
@@ -879,3 +882,60 @@ def lds_param_elbo(state: ClusterState, free_deg) -> torch.Tensor:
                          lik_AG, torch.zeros_like(lik_AG))
     lik_CS = mniw_ops.log_likelihood(obs_prior, state.C, state.Sigma)
     return (lik_AG + lik_CS) / T * 100.0
+
+
+# ---------------------------------------------------------------------------
+# Online single-sample primitives (include_sample and the stream engine).
+# Each broadcasts over the leading (job / slot) dims of the state; y is
+# (..., T) and broadcasts against them.
+# ---------------------------------------------------------------------------
+
+def log_sq_error_last(state: ClusterState, y: torch.Tensor) -> torch.Tensor:
+    """Score a new beat against the cluster's last state
+    (GPI_model.log_sq_error with i=-1: mean = C f_last, cov = Sigma)."""
+    mean = (state.C @ state.f_last)[..., 0]
+    return linalg.gaussian_score(y - mean, state.Sigma)
+
+
+def estimate_new(state: ClusterState, y: torch.Tensor) -> torch.Tensor:
+    """Score assuming the beat were included (GPI_HDP.estimate_new,
+    GPI_HDP.py:2830-2842): posterior update with the current parameters
+    (kalman_step; its solve stays torch.linalg, as it was XLA in the
+    reference), then the score against the posterior mean, inflated
+    when the cluster has exactly one member (GPI_HDP.py:2836)."""
+    f_up, _ = kalman_step(state.f_last, state.P_last, y[..., None],
+                          LDSParams(state.A, state.Gamma, state.C,
+                                    state.Sigma),
+                          state.n == 0, noise_first=state.theta.noise)
+    mean = (state.C @ f_up)[..., 0]
+    eye = _eye(mean.shape[-1], mean)
+    infl = 1e-2 * torch.diagonal(state.Sigma_def, dim1=-2, dim2=-1).mean(-1)
+    infl = torch.where(state.n == 1, infl, torch.zeros_like(infl))
+    return linalg.gaussian_score(y - mean,
+                                 state.Sigma + infl[..., None, None] * eye)
+
+
+def q_lat_tail(state: ClusterState, h_ini=1.0):
+    """Latent-score patch values for the (first, second-to-last, last)
+    members from the compact summary (log_lat_error semantics,
+    GPI_model.py:288-323); the caller scatters them at those members'
+    time indices, the only q_lat entries an online step can change.
+    ``h_ini`` is a float or a tensor of the leading shape."""
+
+    def score(lat_cur, lat_prev, cov_prev, A_, G_):
+        resid = lat_cur - A_ @ lat_prev
+        L = linalg.chol_spd(G_)
+        sol = linalg.solve_lower(L, resid)
+        mahal = torch.sum(sol ** 2, (-2, -1))
+        trace = torch.sum(A_ * (linalg.cho_solve(L, A_) @ cov_prev),
+                          (-2, -1))
+        return -0.5 * (mahal + trace) - 0.5 * resid.shape[-2] * LOG2PI
+
+    h = h_ini[..., None, None] if torch.is_tensor(h_ini) else h_ini
+    val_first = score(state.f_sm_first, state.f_sm_first, state.P_sm_first,
+                      state.A, state.Gamma * h)
+    val_prev = score(state.f_sm_prev, state.f_sm_prev2, state.P_sm_prev2,
+                     state.A_prev, state.Gamma_prev)
+    val_last = score(state.f_sm_last, state.f_sm_prev, state.P_sm_prev,
+                     state.A, state.Gamma)
+    return val_first, val_prev, val_last

@@ -1,21 +1,25 @@
-"""HDP-GPC orchestrator: the offline batch VI sweep (counterpart of
-hdpgpc_tpu.models.hdpgpc; reference GPI_HDP, GPI_HDP.py:30-4251).
+"""HDP-GPC orchestrator (counterpart of hdpgpc_tpu.models.hdpgpc;
+reference GPI_HDP, GPI_HDP.py:30-4251): the offline batch VI sweep and
+the two host-driven online steps.
 
 The accept/reject search over births and reallocations is
 data-dependent control flow and runs in Python on the host, as in the
 reference; every heavy step runs on the model's device:
 
 * cluster refits: models/gplds.build_refit, batched over up to 4 jobs
-  (cluster, lead) per call;
+  (cluster, lead) per call offline, over every absorb candidate of a
+  beat online;
 * HMM forward/backward + hard responsibilities: ops/hmm;
 * kernel hyperparameter fits: models/kernel_fit (memoised per seed beat);
 * HDP stick-breaking (tiny, host numpy): ops/stick_breaking.
 
 ``device`` defaults to "cuda" and raises without a card; "cpu" runs the
 kernels' plain versions.
-The offline sweep ``include_batch`` without warp is what this package
-runs today; the rest of the reference's surface raises
-``NotImplementedError`` naming its ROADMAP item.
+This package runs, without warp, the offline sweep ``include_batch``,
+the online steps ``include_sample`` and ``include_sample_fast``, and
+(models/stream_online.py) the fused stream engine; the rest of the
+reference's surface raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -215,6 +219,8 @@ class HDPGPC:
         self._refit_memo: Dict = {}
         self._memo_stats = [0, 0]
         self._dev_data: Dict = {}
+        # per-lead stacked cluster states of the online fast path
+        self._stack_cache: Dict[int, Tuple[tuple, ClusterState]] = {}
 
     # ------------------------------------------------------------------
     # cluster construction / refit plumbing
@@ -250,14 +256,16 @@ class HDPGPC:
         b = HDPGPC._SMALL_BUCKET
         return b if n_members <= b < N else None
 
-    def _refit_prog(self, update_params=True, bucket=None):
-        key = (update_params, bucket)
+    def _refit_prog(self, update_params=True, pair_smooth=True,
+                    full_backward=True, bucket=None):
+        key = (update_params, pair_smooth, full_backward, bucket)
         if key not in self._refits:
             self._refits[key] = gplds.build_refit(
                 self.Tb, est_limit=self.cfg.gp.estimation_limit,
                 annealing=self.cfg.gp.annealing,
                 dynamic=self.cfg.gp.model_type == "dynamic",
-                update_params=update_params, bucket=bucket,
+                update_params=update_params, pair_smooth=pair_smooth,
+                full_backward=full_backward, bucket=bucket,
                 free_deg=float(self.cfg.gp.free_deg_mniw))
         return self._refits[key]
 
@@ -1532,15 +1540,640 @@ class HDPGPC:
             out[k] = cand
             used.add(cand)
         return out
+
     # ------------------------------------------------------------------
-    # The reference's surface beyond the offline sweep
+    # Legacy HMM surface: compute_h / baum_welch (GPI_HDP.py:3824-3931)
     # ------------------------------------------------------------------
 
-    def include_sample(self, *args, **kwargs):
-        _not_ported("include_sample (online streaming VI)", "A9")
+    def _log_messages(self):
+        """Log forward/backward messages and the log pair posterior over
+        the current fused evidence."""
+        if self.q_last is None:
+            raise ValueError("no evidence yet: include samples first")
+        q_w = torch.as_tensor(self.weight_mean(self.q_last),
+                              device=self.device)
+        q_norm, _ = hmm_ops.row_normalize_log(q_w, axis=1)
+        startPi, _ = self._pis(self.M)
+        transPi = torch.as_tensor(self._trans_log_pi_for_K(self.M),
+                                  device=self.device)
+        spn = torch.as_tensor(np.asarray(startPi)[:self.M],
+                              device=self.device)
+        alpha, _ = hmm_ops.forward(spn, transPi, q_norm)
+        beta = hmm_ops.backward(transPi, q_norm)
+        log_psi = hmm_ops.coupled_pair_log(alpha, beta, transPi, q_norm)
+        return torch.log(alpha), torch.log(beta), log_psi
 
-    def include_sample_fast(self, *args, **kwargs):
-        _not_ported("include_sample_fast (online streaming VI)", "A9")
+    def compute_h(self, time: Optional[int] = None) -> np.ndarray:
+        """Posterior state log-marginals h (GPI_HDP.compute_h,
+        GPI_HDP.py:3824-3862); ``time`` selects one row."""
+        log_alpha, log_beta, _ = self._log_messages()
+        h = hmm_ops.posterior_log_marginals(log_alpha, log_beta).cpu().numpy()
+        return h if time is None else h[time]
+
+    def baum_welch(self):
+        """Legacy re-estimation of (pi, trans) by Baum-Welch
+        (GPI_HDP.baum_welch, GPI_HDP.py:3864-3931); with
+        ``hmm_switch=False`` the current pis, unchanged (:3930-3931)."""
+        if not self.cfg.hmm_switch:
+            startPi, _ = self._pis(self.M)
+            return (np.asarray(startPi)[:self.M],
+                    self._trans_log_pi_for_K(self.M))
+        return hmm_ops.baum_welch(*self._log_messages())
+
+    # ------------------------------------------------------------------
+    # Online streaming VI (GPI_HDP.include_sample, GPI_HDP.py:1906-2208;
+    # the cached step include_sample_fast, :2312-2629). Warp off.
+    # ------------------------------------------------------------------
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def _ensure_online_buffers(self, L):
+        if self._y_all is None:
+            self._y_all = np.zeros((0, self.Tb, L))
+        if self.q_last is None:
+            self.q_last = np.zeros((self.T_count, self.M, L)) - np.inf
+        if self.q_lat_last is None:
+            self.q_lat_last = np.zeros((self.T_count, self.M, L))
+        if self.resp_last is None:
+            self.resp_last = np.zeros((self.T_count, self.M))
+            self.respPair_last = np.zeros((self.T_count, self.M, self.M))
+            if self.T_count > 0:
+                self.resp_last[0, 0] = 1.0
+                self.respPair_last[0, 0, 0] = 1.0
+
+    def _online_include(self, cl: Cluster, y: np.ndarray, t: int,
+                        update_params: bool, pair_smooth: bool) -> Cluster:
+        """One beat through a one-member refit (no final RTS pass)."""
+        prog = self._refit_prog(update_params=update_params,
+                                pair_smooth=pair_smooth, full_backward=False)
+        res = prog(self._dev(y[None, :]), self._dev(np.ones(1)), cl.state)
+        return Cluster(res.state, cl.fitted, np.append(cl.members, t))
+
+    def _include_one(self, cl: Cluster, ld: int, y: np.ndarray, t: int
+                     ) -> Cluster:
+        """Online commit of one beat: kernel fit if first-ever, Kalman
+        include + 1-step MNIW update WITHOUT pair smoothing
+        (GPI_HDP.py:2185-2197)."""
+        cl = self._maybe_kernel_fit_online(cl, ld, y)
+        return self._online_include(cl, y, t, True, False)
+
+    def _maybe_kernel_fit_online(self, cl: Cluster, ld: int, y: np.ndarray
+                                 ) -> Cluster:
+        # members mirrors state.n on the host (no device read)
+        if cl.fitted or cl.members.size > 0:
+            return cl
+        key = self._fit_key(y)
+        theta = self._kernel_fit_cache.get(key)
+        if theta is None:
+            theta = fit_kernel(self.x_basis, y, self._def_bound_sigma,
+                               **self._fit_kw())
+            self._kernel_fit_cache[key] = theta
+        st = gplds.apply_kernel_fit(cl.state, self._xb_dev, theta)
+        return Cluster(st, True, cl.members)
+
+    def _birth_include(self, cl: Cluster, ld: int, y: np.ndarray,
+                       t: int) -> Cluster:
+        """Birth-candidate include: a bare include on the reinit template
+        copy, no pair smoothing and no parameter update, so Gamma/Sigma
+        stay at the template defaults (GPI_HDP.py:1996-2005)."""
+        cl = self._maybe_kernel_fit_online(cl, ld, y)
+        return self._online_include(cl, y, t, False, False)
+
+    def _candidate_include(self, cl: Cluster, ld: int, y: np.ndarray,
+                           t: int) -> Cluster:
+        """Absorb-candidate include: Kalman + pair smoothing + MNIW
+        (GPI_HDP.py:2026-2032)."""
+        cl = self._maybe_kernel_fit_online(cl, ld, y)
+        return self._online_include(cl, y, t, True, True)
+
+    @staticmethod
+    def _patch_q_lat_vals(col: np.ndarray, members_new: np.ndarray,
+                          tails, only_idxs=None) -> np.ndarray:
+        """Scatter q_lat tail values (first, prev, last) at the member
+        indices, restricted to ``only_idxs`` (the include_sample_fast
+        tail-patch contract, _update_q_lat_tail, GPI_HDP.py:2273-2285)."""
+        vf, vp, vl = (float(v) for v in tails)
+        col = col.copy()
+        patch = {int(members_new[0]): vf}
+        if members_new.size >= 2:
+            patch[int(members_new[-1])] = vl
+        if members_new.size >= 3:
+            patch[int(members_new[-2])] = vp
+        for idx, v in patch.items():
+            if only_idxs is None or idx in only_idxs:
+                col[idx] = v
+        return col
+
+    def _patch_q_lat_col(self, col: np.ndarray, cl: Cluster) -> np.ndarray:
+        """Refresh the only q_lat entries an online step can change: the
+        first / second-to-last / last members' latent scores
+        (compute_q_lat_all semantics via the compact summary)."""
+        if cl.members.size == 0 or self.cfg.gp.model_type != "dynamic":
+            return col
+        tails = torch.stack(gplds.q_lat_tail(cl.state)).cpu().numpy()
+        return self._patch_q_lat_vals(col, cl.members, tails)
+
+    @staticmethod
+    def _append_hard_step(resp_prev: np.ndarray, respPair_prev: np.ndarray,
+                          new_state: int, K: int):
+        """Append one hard step to cached responsibilities (reference
+        _append_hard_step, GPI_HDP.py:2287-2310)."""
+        T_prev = resp_prev.shape[0]
+        resp = np.zeros((T_prev + 1, K))
+        resp[:T_prev, :resp_prev.shape[1]] = resp_prev
+        resp[T_prev, new_state] = 1.0
+        respPair = np.zeros((T_prev + 1, K, K))
+        if respPair_prev is not None and respPair_prev.size > 0:
+            respPair[:T_prev, :respPair_prev.shape[1],
+                     :respPair_prev.shape[2]] = respPair_prev
+        if T_prev == 0:
+            respPair[T_prev, new_state, new_state] = 1.0
+        else:
+            prev_state = int(np.argmax(resp_prev[-1]))
+            respPair[T_prev, prev_state, new_state] = 1.0
+        return resp, respPair
+
+    def _stacked_lead(self, ld: int) -> ClusterState:
+        """The lead's cluster states stacked on a leading dim, kept on the
+        device across online steps: a step that changed one cluster costs
+        one slot write, a reorder one gather, instead of a restack."""
+        clusters = self.clusters[ld]
+        ids = tuple(cl.uid for cl in clusters)
+        cached = self._stack_cache.get(ld)
+        tree = None
+        if cached is not None:
+            old_ids, tree = cached
+            if old_ids != ids:
+                diff = [i for i, (a, b) in enumerate(zip(old_ids, ids))
+                        if a != b]
+                if len(old_ids) == len(ids) and len(diff) == 1:
+                    i = diff[0]
+                    tree = gplds.tree_map(
+                        lambda a, b: a.index_copy(
+                            0, torch.tensor([i], device=a.device), b[None]),
+                        tree, clusters[i].state)
+                elif len(old_ids) == len(ids) and set(old_ids) == set(ids):
+                    perm = torch.tensor([old_ids.index(x) for x in ids],
+                                        device=self.device)
+                    tree = gplds.tree_map(lambda a: a[perm], tree)
+                else:
+                    tree = None
+        if tree is None:
+            tree = gplds.stack_states([cl.state for cl in clusters])
+        self._stack_cache[ld] = (ids, tree)
+        return tree
+
+    def _score_last_all(self, ld: int, y_per_cluster: np.ndarray
+                        ) -> np.ndarray:
+        """log_sq_error(i=-1) against every cluster of the lead in one
+        batched call (y_per_cluster (M, T)); the same fetch refreshes each
+        cluster's memoised LDS parameter ELBO."""
+        states = self._stacked_lead(ld)
+        fd = float(self.cfg.gp.free_deg_mniw)
+        packed = torch.stack([
+            gplds.log_sq_error_last(states, self._dev(y_per_cluster)),
+            gplds.lds_param_elbo(states, fd)], 1).cpu().numpy()
+        for mm, cl in enumerate(self.clusters[ld]):
+            if cl.lds_elbo is None:
+                cl.lds_elbo = float(packed[mm, 1])
+        return packed[:, 0]
+
+    def _eval_candidates(self, ld: int, y_mod: np.ndarray, m_template: int):
+        """Every candidate of include_sample_fast in one batched
+        evaluation and one fetch per (beat, lead): slots 0..M-1 absorb
+        the beat into cluster m (pair-smoothed include), slot M is the
+        birth (a bare include on the reinit template, GPI_HDP.py:2444-2458).
+        Returns (est (M+1,), tails (M+1, 3), lds (M+1,))."""
+        M = self.M
+        fd = float(self.cfg.gp.free_deg_mniw)
+        stacked = self._stacked_lead(ld)
+        Ys = self._dev(np.stack([y_mod[:, ld, mm] for mm in range(M)]
+                                + [y_mod[:, ld, -1]]))
+        refit_abs = self._refit_prog(update_params=True, pair_smooth=True,
+                                     full_backward=False)
+        refit_birth = self._refit_prog(update_params=False,
+                                       pair_smooth=False,
+                                       full_backward=False)
+        birth = gplds.reinit_cluster_state(
+            gplds.index_state(stacked, m_template), fd)
+        res_a = refit_abs(Ys[:M, None], self._dev(np.ones((M, 1))), stacked)
+        res_b = refit_birth(Ys[M:], self._dev(np.ones(1)), birth)
+        outs_a = torch.stack([gplds.estimate_new(stacked, Ys[:M]),
+                              *gplds.q_lat_tail(res_a.state, 1.0),
+                              res_a.lds], 1)
+        outs_b = torch.stack([gplds.estimate_new(birth, Ys[M]),
+                              *gplds.q_lat_tail(res_b.state, 0.5),
+                              res_b.lds])
+        packed = torch.cat([outs_a, outs_b[None]]).cpu().numpy()
+        return packed[:, 0], packed[:, 1:4], packed[:, 4]
+
+    def _online_pis(self, M):
+        """Online transPi/startPi use digamma-sum denominators
+        (variational_local_terms, GPI_HDP.py:607-610)."""
+        transPi = sb.trans_log_pi_from_theta(self.glob.trans_theta, M,
+                                             log_sum_exp_form=False)
+        startPi = sb.start_log_pi_from_theta(self.glob.start_theta, M,
+                                             log_sum_exp_form=False)
+        return startPi, transPi
+
+    def _vlt_online(self, q, liks=None):
+        """variational_local_terms (GPI_HDP.py:586-630): full-history FB
+        on the fused q (T, K, L); returns the hard (resp, respPair)."""
+        q = q.copy()
+        if liks is not None:
+            q[-1] = q[-1] + np.asarray(liks)[:, None]
+        startPi, transPi = self._online_pis(self.M)
+        if self.snr_norm.shape[0] != q.shape[0]:
+            # classify calls score one extra (uncommitted) row; weight it
+            # uniformly rather than growing the SNR state
+            q_w = self.weight_mean(q, np.ones((q.shape[0], 1, q.shape[2])))
+        else:
+            q_w = self.weight_mean(q)
+        return self._fb_hard(q_w - q_w.max(axis=1, keepdims=True), startPi,
+                             transPi)
+
+    def _online_begin(self, y, with_warp: bool, classify: bool):
+        """Shared head of the online steps: scale and shape the beat,
+        grow the caches, and build the per-cluster inputs (warp off:
+        every cluster and the birth slot see the raw beat)."""
+        t = self.T_count
+        if with_warp and t > 0:
+            _not_ported("with_warp=True", "A12")
+        y = np.asarray(y, np.float64)
+        if self._y_scale != 1.0:
+            y = y / self._y_scale
+        if y.ndim == 1:
+            y = y[:, None]
+        L = y.shape[1]
+        assert L == self.n_outputs
+        self._ensure_online_buffers(L)
+        if not classify:
+            self.T_count = t + 1
+            self.snr_norm = np.ones((self.T_count, L))
+            self._y_all = np.concatenate([self._y_all, y[None]], axis=0)
+        M = self.M
+        liks = np.zeros(M + 1)
+        y_mod = np.broadcast_to(y[:, :, None], (self.Tb, L, M + 1)).copy()
+        q_aux = np.zeros((t + 1, M + 1, L)) - np.inf
+        q_lat = np.zeros((t + 1, M + 1, L))
+        if t > 0:
+            q_aux[:-1, :self.q_last.shape[1], :] = self.q_last
+            q_lat[:-1, :self.q_lat_last.shape[1], :] = self.q_lat_last
+        return t, L, M, liks, y_mod, q_aux, q_lat
+
+    def _online_commit(self, t, L, y_mod, resp, respPair, q_chos,
+                       q_lat_chos, force_model):
+        """Shared tail of the online steps (GPI_HDP.py:2543-2629): tie
+        normalisation, birth, popularity reorder, 4 x HDP refresh and the
+        commit. Returns (model, birth, reorder)."""
+        M = self.M
+        resp_mod = np.asarray(resp[-1], np.float64).copy()
+        # tie normalisation at rtol 1e-2 (GPI_HDP.py:2082-2085)
+        if np.sum(np.isclose(resp_mod, resp_mod.max(), rtol=1e-2)) > 1:
+            h_argmax = int(np.nanargmax(resp_mod))
+            resp_mod[:] = 0.0
+            resp_mod[h_argmax] = 1.0
+        model = int(np.argmax(resp_mod))
+        if self.cfg.max_models is not None and model >= self.cfg.max_models:
+            force_model = model = int(np.argmax(resp_mod[:-1]))
+        if force_model is not None:
+            resp_mod[:] = 0.0
+            resp_mod[int(force_model)] = 1.0
+            model = int(force_model)
+            resp[-1, :] = 0.0
+            resp[-1, model] = 1.0
+            respPair[-1] = 0.0
+            respPair[-1, model, model] = 1.0
+
+        birth = model == self.M
+        if birth:
+            print("Birth of new model: ", self.M + 1)
+            self.M += 1
+            M = self.M
+            for ld in range(L):
+                self.clusters[ld].append(self._new_cluster())
+            # the newborn uses the birth slot's input
+            y_mod = np.concatenate([y_mod, y_mod[:, :, -1:]], axis=2)
+
+        # reorder by group size (GPI_HDP.reorder, GPI_HDP.py:1091-1110)
+        reorder = np.argsort(-resp[:, :M].sum(axis=0), kind="stable")
+        resp_s = resp.copy()
+        resp_s[:, :M] = resp[:, :M][:, reorder]
+        respPair_s = respPair.copy()
+        respPair_s[:, :M, :M] = respPair[:, :M, :M][:, reorder][:, :, reorder]
+        q_chos[:, :M] = q_chos[:, :M][:, reorder]
+        q_lat_chos[:, :M] = q_lat_chos[:, :M][:, reorder]
+        for ld in range(L):
+            self.clusters[ld][:M] = [self.clusters[ld][i] for i in reorder]
+        resp, respPair = resp_s, respPair_s
+        resp_mod = np.asarray(resp[-1, :M], np.float64)
+        model = int(np.argmax(resp_mod))
+
+        # ---- HDP global update (4 iterations; GPI_HDP.py:2113-2141) ----
+        start_counts = resp[0, :M]
+        trans_counts = respPair[:, :M, :M].sum(axis=0)
+        if M > 2:
+            self.glob = sb.reinit_globals(self.glob, M - 1, trans_counts,
+                                          start_counts)
+        if M >= 2:
+            for _ in range(4):
+                tt, st = sb.calc_theta_full(self.glob, trans_counts,
+                                            start_counts, M)
+                self.glob = sb.HDPGlobals(
+                    self.glob.rho, self.glob.omega, tt, st, self.glob.gamma,
+                    self.glob.trans_alpha, self.glob.start_alpha,
+                    self.glob.kappa)
+                self.glob = sb.optimise_globals(self.glob, M=self.M + 1)
+
+        # ---- commit to the real clusters ----
+        self.actual_state = model
+        if self.verbose:
+            print("Main model chosen:", model + 1)
+        for ld in range(L):
+            for m in range(M):
+                hh = resp_mod[m] if m < resp_mod.shape[0] else 0.0
+                src = reorder[m] if m < reorder.shape[0] else m
+                y_commit = y_mod[:, ld, min(src, y_mod.shape[2] - 1)]
+                if hh > 0.99:
+                    self.clusters[ld][m] = self._include_one(
+                        self.clusters[ld][m], ld, y_commit, t)
+        self.resp_last = resp[:, :self.M].copy()
+        self.respPair_last = respPair[:, :self.M, :self.M].copy()
+        self.resp_assigned.append(np.argmax(resp[:, :self.M], axis=1))
+        self.metrics.append(kind="online_step", t=t, model=model,
+                            birth=bool(birth), n_clusters=self.M)
+        return model
+
+    def include_sample(self, x_train, y, with_warp: bool = True,
+                       force_model=None, classify: bool = False):
+        """Include one streaming beat: score, decide birth vs absorb by
+        ELBO over the whole history, commit, update the HDP globals
+        (GPI_HDP.py:1906-2208). Warp is not ported: ``with_warp`` must be
+        False from the second beat on (ROADMAP A12)."""
+        t, L, M, liks, y_mod, q_aux, q_lat = self._online_begin(
+            y, with_warp, classify)
+        for ld in range(L):
+            scores = self._score_last_all(ld, y_mod[:, ld, :M].T)
+            for m in range(M):
+                q_aux[-1, m, ld] = scores[m] + liks[m]
+                q_lat[:, m, ld] = self._patch_q_lat_col(
+                    q_lat[:, m, ld], self.clusters[ld][m])
+
+        if t > 0:
+            resp, respPair = self._vlt_online(q_aux)
+            snr_loc = None if self.snr_norm.shape[0] == t + 1 \
+                else np.ones((t + 1, 1, L))
+            q_all, elbo = self.compute_q_elbo(
+                resp[:-1, :-1], respPair[:-1, :-1, :-1],
+                self.weight_mean(q_aux, snr_loc)[:-1, :-1],
+                self.weight_mean(q_lat, snr_loc)[:-1, :-1],
+                self.clusters, self.M, snr="saved", post=False,
+                one_sample=True, verb=self.verbose)
+        else:
+            q_all, elbo = 0.0, 0.0
+
+        if classify:
+            resp_mod = np.asarray(resp[-1]) if t > 0 else None
+            return q_aux[:-1], resp_mod, liks[:-1]
+
+        q_chos, q_lat_chos = q_aux, q_lat
+        if t > 0 and force_model is None:
+            q_ord = np.argsort(-self.weight_mean(q_aux)[-1, :-1],
+                               kind="stable")
+            m_template = int(q_ord[-1])
+
+            # ===== birth candidate (GPI_HDP.py:1996-2013) =====
+            q_prev = q_aux.copy()
+            q_lat_prev = q_lat.copy()
+            prov: List[Cluster] = []
+            for ld in range(L):
+                cl = self.clusters[ld][m_template]
+                st = gplds.reinit_cluster_state(
+                    cl.state, float(self.cfg.gp.free_deg_mniw))
+                pc = Cluster(st, cl.fitted, state_key=cl.state_key)
+                q_prev[-1, -1, ld] = float(gplds.estimate_new(
+                    pc.state, self._dev(y_mod[:, ld, -1]))) + liks[-1]
+                pc = self._birth_include(pc, ld, y_mod[:, ld, -1], t)
+                q_lat_prev[:, -1, ld] = self._patch_q_lat_col(
+                    q_lat_prev[:, -1, ld], pc)
+                prov.append(pc)
+            resp_prev, respPair_prev = self._vlt_online(q_prev, liks)
+            clusters_birth = [list(self.clusters[ld]) + [prov[ld]]
+                              for ld in range(L)]
+            q_prev_post, elbo_prev_post = self.compute_q_elbo(
+                resp_prev, respPair_prev, self.weight_mean(q_prev),
+                self.weight_mean(q_lat_prev), clusters_birth, self.M,
+                snr="saved", post=True, one_sample=True, verb=self.verbose)
+            elbo_prev_post -= elbo
+            q_prev_post -= q_all
+
+            if int(np.argmax(self.weight_mean(q_prev)[-1])) == self.M:
+                # ===== absorb candidates in q-order (GPI_HDP.py:2022-2059)
+                q_post = q_aux.copy()
+                q_lat_post = q_lat.copy()
+                chosen = None
+                for m_cand in q_ord:
+                    m_cand = int(m_cand)
+                    clusters_post = [list(self.clusters[ld])
+                                     for ld in range(L)]
+                    for ld in range(L):
+                        cl = self.clusters[ld][m_cand]
+                        q_post[-1, m_cand, ld] = float(gplds.estimate_new(
+                            cl.state, self._dev(y_mod[:, ld, m_cand]))) \
+                            + liks[m_cand]
+                        cc = self._candidate_include(
+                            cl.clone(), ld, y_mod[:, ld, m_cand], t)
+                        q_lat_post[:, m_cand, ld] = self._patch_q_lat_col(
+                            q_lat_post[:, m_cand, ld], cc)
+                        clusters_post[ld][m_cand] = cc
+                    resp_post, respPair_post = self._vlt_online(q_post, liks)
+                    q_bas_post, elbo_bas_post = self.compute_q_elbo(
+                        resp_post[:, :-1], respPair_post[:, :-1, :-1],
+                        self.weight_mean(q_post)[:, :-1],
+                        self.weight_mean(q_lat_post)[:, :-1],
+                        clusters_post, self.M, snr="saved", post=False,
+                        one_sample=True, verb=self.verbose)
+                    elbo_bas_post -= elbo
+                    q_bas_post -= q_all
+                    if q_bas_post + elbo_bas_post \
+                            > q_prev_post + elbo_prev_post:
+                        chosen = m_cand
+                        break
+                if chosen is not None:
+                    q_chos, q_lat_chos = q_post, q_lat_post
+                    resp, respPair = self._vlt_online(q_chos, liks)
+                else:
+                    q_chos, q_lat_chos = q_prev, q_lat_prev
+                    resp, respPair = resp_prev, respPair_prev
+            else:
+                resp, respPair = self._vlt_online(q_chos, liks)
+        elif t == 0:
+            init_state = 0 if force_model is None else int(force_model)
+            resp = np.zeros((1, M + 1))
+            resp[0, init_state] = 1.0
+            respPair = np.zeros((1, M + 1, M + 1))
+            respPair[0, init_state, init_state] = 1.0
+        else:
+            resp, respPair = self._vlt_online(q_chos, liks)
+
+        model = self._online_commit(t, L, y_mod, resp, respPair, q_chos,
+                                    q_lat_chos, force_model)
+        # refresh the caches, every latent tail recomputed
+        self.q_last = q_chos[:, :self.M, :].copy()
+        ql = q_lat_chos[:, :self.M, :].copy()
+        for ld in range(L):
+            for m in range(self.M):
+                ql[:, m, ld] = self._patch_q_lat_col(
+                    ql[:, m, ld], self.clusters[ld][m])
+        self.q_lat_last = ql
+        return model
+
+    def include_sample_fast(self, x_train, y, with_warp: bool = True,
+                            force_model=None, classify: bool = False):
+        """O(1)-per-beat cached online step (GPI_HDP.include_sample_fast,
+        GPI_HDP.py:2312-2629). Its approximations relative to
+        ``include_sample`` are the reference's:
+
+        * past resp/respPair are reused; the new step is appended as a
+          hard one-hot (+ hard transition pair) instead of re-running
+          forward-backward over the history (GPI_HDP.py:2287-2310);
+        * q_lat is patched only at tail indices t / t-1
+          (GPI_HDP.py:2273-2285);
+        * the birth candidate's q_lat column uses h_ini=0.5 and is scaled
+          by 5.0 (GPI_HDP.py:2460, a reference quirk kept here).
+
+        Warp is not ported: ``with_warp`` must be False from the second
+        beat on (ROADMAP A12)."""
+        t, L, M, liks, y_mod, q_aux, q_lat = self._online_begin(
+            y, with_warp, classify)
+        for ld in range(L):
+            scores = self._score_last_all(ld, y_mod[:, ld, :M].T)
+            q_aux[-1, :M, ld] = scores + liks[:M]
+
+        if classify:
+            if t > 0:
+                resp, _ = self._vlt_online(q_aux)
+                return q_aux[:-1], np.asarray(resp[-1]), liks[:-1]
+            return q_aux[:-1], None, liks[:-1]
+
+        Tn = t + 1
+        q_chos, q_lat_chos = q_aux, q_lat
+        if t == 0:
+            init_state = 0 if force_model is None else int(force_model)
+            resp = np.zeros((1, M + 1))
+            resp[0, init_state] = 1.0
+            respPair = np.zeros((1, M + 1, M + 1))
+            respPair[0, init_state, init_state] = 1.0
+        else:
+            # baseline on the cached history; SNR sliced to the history
+            # rows (GPI_HDP.py:2419-2426 snr_norm[:-1])
+            snr_hist = np.ones((t, 1, L))
+            base_q, base_elbo = self.compute_q_elbo(
+                self.resp_last, self.respPair_last,
+                self.weight_mean(self.q_last, snr_hist),
+                self.weight_mean(self.q_lat_last, snr_hist),
+                self.clusters, self.M, snr="saved", post=False,
+                one_sample=True, verb=False)
+            base_total = base_q + base_elbo
+            m_best_sse = int(np.argmax(self.weight_mean(q_aux)[-1, :-1]))
+            resp_h, respPair_h = self._append_hard_step(
+                self.resp_last, self.respPair_last, m_best_sse, M)
+            resp = np.zeros((Tn, M + 1))
+            resp[:, :M] = resp_h
+            respPair = np.zeros((Tn, M + 1, M + 1))
+            respPair[:, :M, :M] = respPair_h
+
+        if t > 0 and force_model is None:
+            q_ord = np.argsort(-self.weight_mean(q_aux)[-1, :-1],
+                               kind="stable")
+            m_template = int(q_ord[-1])
+
+            # ===== every candidate (absorb x M + birth) in one batched
+            # evaluation per lead (the math of GPI_HDP.py:2444-2541) =====
+            ests = np.zeros((M + 1, L))
+            tails = np.zeros((M + 1, 3, L))
+            lds_new = np.zeros((M + 1, L))
+            for ld in range(L):
+                ests[:, ld], tails[:, :, ld], lds_new[:, ld] = \
+                    self._eval_candidates(ld, y_mod, m_template)
+
+            # ===== birth candidate (GPI_HDP.py:2444-2463) =====
+            q_prev = q_aux.copy()
+            q_lat_prev = q_lat.copy()
+            prov: List[Cluster] = []
+            mem_birth = np.asarray([t], np.int64)
+            for ld in range(L):
+                q_prev[-1, -1, ld] = ests[M, ld] + liks[-1]
+                q_lat_prev[:, -1, ld] = self._patch_q_lat_vals(
+                    q_lat_prev[:, -1, ld], mem_birth, tails[M, :, ld],
+                    only_idxs=(t,)) * 5.0
+                pc = Cluster(None, self.clusters[ld][m_template].fitted,
+                             mem_birth)
+                pc.lds_elbo = float(lds_new[M, ld])
+                prov.append(pc)
+
+            # gate: compare absorb only when birth wins on emission
+            if int(np.argmax(self.weight_mean(q_prev)[-1])) == M:
+                resp_birth, respPair_birth = self._append_hard_step(
+                    self.resp_last, self.respPair_last, M, M + 1)
+                clusters_birth = [list(self.clusters[ld]) + [prov[ld]]
+                                  for ld in range(L)]
+                q_b, elbo_b = self.compute_q_elbo(
+                    resp_birth, respPair_birth, self.weight_mean(q_prev),
+                    self.weight_mean(q_lat_prev), clusters_birth, M + 1,
+                    snr="saved", post=True, one_sample=True, verb=False)
+                best_total = (q_b + elbo_b) - base_total
+                best_pack = (q_prev, q_lat_prev, resp_birth, respPair_birth)
+
+                # ===== absorb candidates in q-order (GPI_HDP.py:2484-2541)
+                for m_cand in q_ord:
+                    m_cand = int(m_cand)
+                    q_post = q_aux.copy()
+                    q_lat_post = q_lat.copy()
+                    clusters_post = [list(self.clusters[ld])
+                                     for ld in range(L)]
+                    for ld in range(L):
+                        cl = self.clusters[ld][m_cand]
+                        q_post[-1, m_cand, ld] = ests[m_cand, ld] \
+                            + liks[m_cand]
+                        mem_new = np.append(cl.members, t)
+                        q_lat_post[:, m_cand, ld] = self._patch_q_lat_vals(
+                            q_lat_post[:, m_cand, ld], mem_new,
+                            tails[m_cand, :, ld], only_idxs=(t, t - 1))
+                        cc = Cluster(None, cl.fitted, mem_new)
+                        cc.lds_elbo = float(lds_new[m_cand, ld])
+                        clusters_post[ld][m_cand] = cc
+                    resp_abs, respPair_abs = self._append_hard_step(
+                        self.resp_last, self.respPair_last, m_cand, M)
+                    q_a, elbo_a = self.compute_q_elbo(
+                        resp_abs, respPair_abs,
+                        self.weight_mean(q_post)[:, :M],
+                        self.weight_mean(q_lat_post)[:, :M],
+                        clusters_post, self.M, snr="saved", post=False,
+                        one_sample=True, verb=False)
+                    if (q_a + elbo_a) - base_total > best_total:
+                        resp_full = np.zeros((Tn, M + 1))
+                        resp_full[:, :M] = resp_abs
+                        respPair_full = np.zeros((Tn, M + 1, M + 1))
+                        respPair_full[:, :M, :M] = respPair_abs
+                        best_pack = (q_post, q_lat_post, resp_full,
+                                     respPair_full)
+                        break
+                q_chos, q_lat_chos, resp, respPair = best_pack
+
+        model = self._online_commit(t, L, y_mod, resp, respPair, q_chos,
+                                    q_lat_chos, force_model)
+        # refresh the caches verbatim (stale non-tail entries are the
+        # documented fast-path approximation, GPI_HDP.py:2620-2626)
+        self.q_last = q_chos[:, :self.M, :].copy()
+        self.q_lat_last = q_lat_chos[:, :self.M, :].copy()
+        return model
+
+    # ------------------------------------------------------------------
+    # The reference's surface not ported yet
+    # ------------------------------------------------------------------
 
     def cluster_new_batch(self, *args, **kwargs):
         _not_ported("cluster_new_batch (frozen-cluster classifier)", "A13")

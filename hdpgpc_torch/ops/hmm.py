@@ -17,6 +17,7 @@ matrix products (``ops.scan``), as in the reference.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hdpgpc_torch.ops.scan import associative_scan
@@ -83,6 +84,31 @@ def forward(start_log_pi, trans_log_pi, log_q):
     return fmsg, torch.cat([marg1[None], marg_rest])
 
 
+def forward_seq(start_log_pi, trans_log_pi, log_q):
+    """The sequential reference recursion (GPI_HDP.py:3546-3610 as
+    written), the oracle for ``forward``."""
+    pi = _floor(torch.exp(start_log_pi), 1e-10)
+    PiT = _floor(_safe_exp_rows(trans_log_pi.T), 1e-6)
+    q = _safe_exp_rows(log_q)
+    fs, margs = [], []
+    for t in range(q.shape[0]):
+        f = pi * q[t] if t == 0 else (PiT @ fs[-1]) * q[t]
+        marg = torch.sum(f)
+        fs.append(f / marg)
+        margs.append(marg)
+    return torch.stack(fs), torch.stack(margs)
+
+
+def forward_incremental(fmsg_prev, trans_log_pi, log_q_last):
+    """Append one forward step to a cached fmsg (GPI_HDP.py:3586-3594)."""
+    PiT = _floor(_safe_exp_rows(trans_log_pi.T), 1e-6)
+    q_last = torch.nan_to_num(torch.exp(log_q_last - torch.max(log_q_last)),
+                              nan=1e-8)
+    f = (PiT @ fmsg_prev) * q_last
+    marg = torch.sum(f)
+    return f / marg, marg
+
+
 def backward(trans_log_pi, log_q):
     """Backward messages with the reference's quirky normalisation:
     bmsg[t] = PiMat @ (bmsg[t+1] * q[t+1]) divided by the sum of its
@@ -98,6 +124,19 @@ def backward(trans_log_pi, log_q):
     b = torch.sum(C, dim=2)
     b = b / torch.sum(b[:, :-1], dim=1, keepdim=True)
     return torch.cat([b, b_last[None]])
+
+
+def backward_seq(trans_log_pi, log_q):
+    """The sequential reference recursion (GPI_HDP.py:3612-3649 as
+    written), the oracle for ``backward``."""
+    PiMat = _floor(_safe_exp_rows(trans_log_pi), 1e-5)
+    q = _safe_exp_rows(log_q)
+    N, K = q.shape
+    bs = [torch.ones(K, dtype=q.dtype, device=q.device)]
+    for t in range(N - 2, -1, -1):
+        b = PiMat @ (bs[0] * q[t + 1])
+        bs.insert(0, b / torch.sum(b[:-1]))
+    return torch.stack(bs)
 
 
 def coupled_pair_log(alpha, beta, trans_log_pi, log_q):
@@ -159,6 +198,44 @@ def posterior_log_marginals(log_alpha, log_beta):
     GPI_HDP.py:3824-3862)."""
     s = log_alpha + log_beta
     return s - torch.logsumexp(s, dim=1, keepdim=True)
+
+
+def normalize_log_quirk(x) -> np.ndarray:
+    """The reference's heuristic log-row normaliser (normalize_log,
+    GPI_HDP.py:4066-4083), not logsumexp: it rescales |x| by its max,
+    flips it into [0, 1] weights, floors exact zeros at 1e-50 and
+    returns the log of the weight simplex. Host numpy (a K-vector)."""
+    x = np.asarray(x, dtype=np.float64).ravel()
+    bound = 1e-50
+    if np.max(x) == -np.inf:
+        return np.repeat(np.log(bound), x.size)
+    if not np.isclose(np.max(x), 0):
+        aux = 1.0 - np.abs(x) / np.max(np.abs(x))
+        aux = np.where(aux == 0, bound, aux)
+        return np.log(aux / np.sum(aux))
+    out = np.repeat(np.log(bound), x.size)
+    out[int(np.argmax(x))] = 0.0
+    return out
+
+
+def baum_welch(log_alpha, log_beta, log_psi):
+    """Baum-Welch (Rabiner) re-estimation from log messages
+    (GPI_HDP.baum_welch, GPI_HDP.py:3864-3931). ``log_psi`` is the
+    (T, K, K) log pair posterior of ``coupled_pair_log`` (row 0 is -inf,
+    as in the reference). Returns numpy ``(log_pi, log_trans)``:
+    log_pi = h[0]; log_trans[i, j] = logsumexp_t psi[t, i, j] -
+    logsumexp_{t, j} psi[t, i, j] over t in [0, T-1) (the reference's
+    range, which drops the last transition), each row then through
+    ``normalize_log_quirk``."""
+    h = posterior_log_marginals(log_alpha, log_beta)
+    log_pi = h[0].cpu().numpy()
+    psi = log_psi[:-1]
+    num = torch.logsumexp(psi, dim=0).cpu().numpy()
+    den = torch.logsumexp(psi, dim=(0, 2)).cpu().numpy()
+    with np.errstate(invalid="ignore"):
+        trans = num - den[:, None]
+    trans = np.where(np.isneginf(num), -np.inf, trans)
+    return log_pi, np.stack([normalize_log_quirk(row) for row in trans])
 
 
 def entropy_terms(resp, respPair, eps=1e-30):

@@ -81,10 +81,11 @@ def spd_solve(M: torch.Tensor, B: torch.Tensor,
 
 
 def gaussian_score(diff: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
-    """-0.5 d' cov^-1 d - 0.5 T log 2pi for diff (T,) or (T, 1)."""
-    d = diff.reshape(-1, 1)
+    """-0.5 d' cov^-1 d - 0.5 T log 2pi for diff (..., T) and cov
+    (..., T, T), batched over the leading dims."""
+    d = diff[..., None]
     alpha = cho_solve(chol_spd(cov), d)
-    return -0.5 * torch.sum(d * alpha) - 0.5 * d.shape[0] * LOG2PI
+    return -0.5 * torch.sum(d * alpha, (-2, -1)) - 0.5 * d.shape[-2] * LOG2PI
 
 
 def gaussian_score_shared_cov(Y: torch.Tensor, mean: torch.Tensor,

@@ -33,7 +33,8 @@ def _spd(n, T, seed, cond=5.0):
     return spd, rng.standard_normal((n, T, T)) * 12.0
 
 
-@pytest.mark.parametrize("n,T,R", [(16, 90, 90), (8, 128, 128), (3, 5, 2),
+@pytest.mark.parametrize("n,T,R", [(16, 90, 90), (64, 90, 90), (4, 90, 90),
+                                   (2, 90, 90), (8, 128, 128), (3, 5, 2),
                                    (40, 33, 70), (2, 128, 300),
                                    (4, 200, 200), (2, 300, 7),
                                    (1, 480, 3), (1, 900, 2)])
@@ -147,3 +148,37 @@ def test_gram_noise_fused_in_one_launch(cuda, dtype):
     assert torch.equal(K, Kp)
     assert torch.equal(gram(p, x, x), rbf_gram(x, x, p.outputscale,
                                                 p.lengthscale))
+
+
+def test_stream_engine_on_card_matches_cpu(cuda):
+    """The float64 engine at chunk 1 on 60 beats of the growth stream
+    (three births), card against CPU: equal labels, M and accounting."""
+    from hdpgpc_torch.data.loader import (default_x_basis,
+                                          synthetic_growth_stream)
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    from hdpgpc_torch.models.stream_online import OnlineStreamEngine
+    from hdpgpc_torch.ops.kernels import fused_rbf_gram
+    y, _z = synthetic_growth_stream(120, 24, 4, seed=7, start_beat=0,
+                                    interval=15)
+    std = float(np.std(y))
+    sd = float(np.std(np.diff(y, axis=0)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = HDPGPC(default_x_basis(24), n_outputs=1, ini_gamma=sd,
+                   ini_sigma=std, ini_outputscale=4.0,
+                   bound_sigma=(std * 0.05, std * 0.2),
+                   bound_gamma=(sd * 0.05, sd * 0.2), max_models=8,
+                   estimation_limit=50, device=dev)
+        eng = OnlineStreamEngine(m, K=8, chunk=1)
+        b0, a0 = spd_solve.launches, fused_rbf_gram.launches
+        eng.run(y[:60])
+        out[dev] = (eng.labels(), int(eng.carry.M),
+                    float(eng.carry.q_sel_sum), float(eng.carry.qlat_sel_sum),
+                    spd_solve.launches - b0, fused_rbf_gram.launches - a0)
+    a, b = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(a[0], b[0])
+    assert a[1] == b[1] >= 2
+    np.testing.assert_allclose(a[2:4], b[2:4], rtol=1e-8)
+    # three kernel B launches a beat on the card (absorb candidates,
+    # birth, commit), one kernel A per kernel fit; none on the CPU
+    assert a[4] == 3 * 60 and a[5] >= a[1] and b[4] == b[5] == 0
