@@ -33,7 +33,24 @@ Phases (each prints a line; any failure raises and exits non-zero):
 7. online_parity: the engine in float64 at chunk 1 on the first 230
    beats (the first birth is at beat 200), and include_sample_fast on
    the first 100, each on the card and on the CPU: identical partitions
-   and M, the engine's accounting sums equal to 1e-8 relative.
+   and M, the engine's accounting sums equal to 1e-8 relative;
+8. warp: ``include_batch(with_warp=True)`` on 2272 synthetic beats of
+   T = 90 and TWO leads (record 102's shape, BASELINE config 3), float32,
+   estimation_limit=1000, two sweeps, the warp noise from the data as
+   examples/run_offline.py takes it: s/sweep, M, error, the batched warps
+   run and the warp-cache hits, the seconds of one batched warp
+   (B = 2272, 50 Adam steps) timed alone, each kernel's launches;
+9. warp_parity: that sweep in float64 on the first 200 beats, three
+   sweeps, card against CPU: identical partitions in every sweep, ELBO
+   to 1e-8;
+10. online_warp: include_sample_fast in float64 on a growth stream,
+    card against CPU: 44 beats without the warp (the stream's first
+    birth is at beat 40; under the warp these beats are absorbed), then
+    24 with it (greedy, 250 Adam steps a warp): identical decisions;
+    s/beat and warps a beat of the warped part;
+11. ml_em: the offline sweep with bayesian_params=False (the ML-EM
+    refit) in float64 on the first 200 beats of the slice, card against
+    CPU: identical partitions; the card's s/sweep and kernel B launches.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Logs of the sweeps go to
@@ -55,7 +72,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "parity", "online",
-          "online_parity")
+          "online_parity", "warp", "warp_parity", "online_warp", "ml_em")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 # kernel B: max |X - X64| / (|X64| + 1e-3) against a float64 truth
@@ -80,6 +97,20 @@ GROWTH = dict(n=800, T=90, n_clusters=4, seed=7, start_beat=0,
 ONLINE_K, ONLINE_CHUNK, ONLINE_WARM = 16, 32, 96
 ONLINE_MAX_ERR = 0.02
 PARITY_ENGINE_BEATS, PARITY_FAST_BEATS = 230, 100
+# the warp phases: the slice's beats with two leads, two sweeps; the
+# float64 parity prefix runs three (to convergence it takes nine, M 8,
+# ~8 minutes of CPU on its half alone)
+WARP_LEADS, WARP_SWEEPS, WARP_PARITY_BEATS = 2, 2, 200
+WARP_PARITY_SWEEPS = 3
+# the online warp: under the warp the growth stream's new morphologies
+# are absorbed (no birth in 46 beats at interval 40, hdpgpc_tpu and the
+# port alike, on a CPU), so the stream's first ONLINE_WARP_FREE beats run
+# without it and hold its first birth (beat 40); ONLINE_WARP_BEATS
+# warped beats follow
+ONLINE_WARP = dict(n=256, T=90, n_clusters=4, seed=7, start_beat=0,
+                   interval=40)
+ONLINE_WARP_FREE, ONLINE_WARP_BEATS = 44, 24
+ML_EM_BEATS = 200
 
 
 def _say(phase: str, msg: str) -> None:
@@ -244,7 +275,7 @@ def _fmt_times(t):
             f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
 
 
-def _model(HDPGPC, y, est, dtype, device):
+def _model(HDPGPC, y, est, dtype, device, **kw):
     from hdpgpc_torch.data.loader import default_x_basis
     from hdpgpc_torch.data.priors import compute_estimators_lds
     std, std_dif, bs, bg = compute_estimators_lds(y)
@@ -253,14 +284,25 @@ def _model(HDPGPC, y, est, dtype, device):
     # samples of each beat as an ECG baseline (GPI_HDP.py:1876-1880),
     # which synthetic beats do not have; with it, hdpgpc_tpu and this
     # port alike keep one cluster on these beats
-    return HDPGPC(default_x_basis(y.shape[1]), n_outputs=y.shape[2],
-                  ini_lengthscale=3.0, bound_lengthscale=(1.0, 20.0),
-                  ini_gamma=std_dif, ini_sigma=std, ini_outputscale=300.0,
-                  bound_sigma=bs, bound_gamma=bg, verbose=False,
-                  hmm_switch=True, max_models=100, bayesian_params=True,
-                  reestimate_initial_params=False, n_explore_steps=5,
-                  free_deg_MNIV=5, estimation_limit=est,
-                  compute_dtype=dtype, device=device)
+    cfg = dict(ini_lengthscale=3.0, bound_lengthscale=(1.0, 20.0),
+               ini_gamma=std_dif, ini_sigma=std, ini_outputscale=300.0,
+               bound_sigma=bs, bound_gamma=bg, verbose=False,
+               hmm_switch=True, max_models=100, bayesian_params=True,
+               reestimate_initial_params=False, n_explore_steps=5,
+               free_deg_MNIV=5, estimation_limit=est,
+               compute_dtype=dtype, device=device)
+    cfg.update(kw)
+    return HDPGPC(default_x_basis(y.shape[1]), n_outputs=y.shape[2], **cfg)
+
+
+def _warp_model(HDPGPC, y, est, dtype, device):
+    """_model with the warp noise taken from the data as
+    examples/run_offline.py:33-43 takes it."""
+    from hdpgpc_torch.data.priors import compute_estimators_lds
+    noise_warp = compute_estimators_lds(y)[0] * 0.1
+    return _model(HDPGPC, y, est, dtype, device, noise_warp=noise_warp,
+                  bound_noise_warp=(noise_warp * 0.1, noise_warp * 0.2),
+                  method_compute_warp="greedy")
 
 
 def _quiet(fn, log_name):
@@ -286,12 +328,13 @@ def _counted(fn):
                  "rbf_gram": fused_rbf_gram.launches}
 
 
-def _sweep(torch, np, model, y, log_name):
+def _sweep(torch, np, model, y, log_name, with_warp=False, it_limit=None):
     x = np.tile(np.arange(y.shape[1], dtype=np.float64), (y.shape[0], 1))
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _quiet(lambda: model.include_batch(x, y, with_warp=False), log_name)
+    _quiet(lambda: model.include_batch(x, y, it_limit=it_limit,
+                                       with_warp=with_warp), log_name)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     return time.perf_counter() - t0
@@ -341,15 +384,10 @@ def phase_parity(torch, np):
         _say("parity", f"{dev}: sweeps {len(m.train_elbo)}, M {m.M}, "
              f"{secs:.2f} s, launches {lc}")
     a, b = runs["cuda"], runs["cpu"]
-    same = (len(a.resp_assigned) == len(b.resp_assigned) and all(
-        np.array_equal(p, q) for p, q in zip(a.resp_assigned,
-                                             b.resp_assigned)))
-    ea, eb = np.asarray(a.train_elbo), np.asarray(b.train_elbo)
-    rel = float(np.max(np.abs(ea - eb) / np.abs(eb))) \
-        if ea.shape == eb.shape and ea.size else float("inf")
+    same, rel = _same_sweeps(np, a, b)
     _say("parity", f"identical partitions {same}, M {a.M} vs {b.M}, "
          f"max ELBO rel diff {rel:.3e}")
-    if not (same and a.M == b.M and rel <= 1e-8):
+    if not (same and rel <= 1e-8):
         raise AssertionError("card and CPU sweeps disagree")
 
 
@@ -465,6 +503,169 @@ def phase_online_parity(torch, np):
         raise AssertionError("card and CPU include_sample_fast disagree")
 
 
+def _same_sweeps(np, a, b):
+    """Identical partitions in every sweep, equal M, and the largest
+    relative ELBO difference."""
+    same = (a.M == b.M and len(a.resp_assigned) == len(b.resp_assigned)
+            and all(np.array_equal(p, q) for p, q in zip(a.resp_assigned,
+                                                         b.resp_assigned)))
+    ea, eb = np.asarray(a.train_elbo), np.asarray(b.train_elbo)
+    rel = float(np.max(np.abs(ea - eb) / np.abs(eb))) \
+        if ea.shape == eb.shape and ea.size else float("inf")
+    return same, rel
+
+
+def _warp_beats():
+    from hdpgpc_torch.data.loader import synthetic_beats
+    return synthetic_beats(2272, T=90, n_clusters=4, n_outputs=WARP_LEADS,
+                           noise=0.05, seed=0)
+
+
+def _time_batch_warp(torch, model, y):
+    """Seconds of one batched warp of every beat of lead 0 against beat
+    0 (B = N, train_iter_batch Adam steps), median of three, on the
+    model's device, with the model's prior and noise bounds."""
+    Yd = torch.as_tensor(y[:, :, 0] / model._y_scale, dtype=torch.float64,
+                         device=model.device)
+    prior = model._warp_prior()
+    n = float(model.cfg.warp.bound_noise_warp[0])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._warp_fn_batch(model._xb_dev, Yd, Yd[0], prior, 1.0, 1.0, n)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[1]
+
+
+def phase_warp(torch, np):
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    from hdpgpc_torch.utils.eval import classification_error
+    y, z = _warp_beats()
+    model = _warp_model(HDPGPC, y, SLICE_EST_LIMIT, "float32", "cuda")
+    secs, launches = _counted(lambda: _sweep(
+        torch, np, model, y, "chip_smoke_warp.log", with_warp=True,
+        it_limit=WARP_SWEEPS))
+    sweeps = len(model.train_elbo)
+    err, tot = classification_error(model, z)
+    wc = dict(model.warp_counts)
+    t_warp = _time_batch_warp(torch, model, y)
+    _say("warp", f"{y.shape[0]} beats x {y.shape[2]} leads, sweeps {sweeps}, "
+         f"M {model.M}, {secs:.2f} s total, {secs / max(sweeps, 1):.3f} "
+         f"s/sweep, error {err}/{tot}, f32_fragile {model.f32_fragile}, "
+         f"batched warps {wc['batch']}, warp-cache hits "
+         f"{wc['batch_hits']}, one batched warp (B={y.shape[0]}, "
+         f"{model.cfg.warp.train_iter_batch} steps) {t_warp:.3f} s, "
+         f"launches {launches}, refit memo hits/misses {model._memo_stats}")
+    if not (sweeps and all(math.isfinite(e) for e in model.train_elbo)):
+        raise AssertionError("non-finite or missing ELBO")
+    if wc["batch"] <= 0:
+        raise AssertionError("the sweep ran no warp")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+def phase_warp_parity(torch, np):
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    y = _warp_beats()[0][:WARP_PARITY_BEATS]
+    runs, card = {}, None
+    for dev in ("cuda", "cpu"):
+        m = _warp_model(HDPGPC, y, 300, "float64", dev)
+        secs, lc = _counted(lambda: _sweep(
+            torch, np, m, y, f"chip_smoke_warp_parity_{dev}.log",
+            with_warp=True, it_limit=WARP_PARITY_SWEEPS))
+        runs[dev] = m
+        card = lc if dev == "cuda" else card
+        _say("warp_parity", f"{dev}: sweeps {len(m.train_elbo)}, M {m.M}, "
+             f"{secs:.2f} s, batched warps {m.warp_counts['batch']}, "
+             f"launches {lc}")
+    same, rel = _same_sweeps(np, runs["cuda"], runs["cpu"])
+    _say("warp_parity", f"identical partitions {same}, M {runs['cuda'].M} "
+         f"vs {runs['cpu'].M}, max ELBO rel diff {rel:.3e}")
+    if not (same and rel <= 1e-8):
+        raise AssertionError("card and CPU warped sweeps disagree")
+    return card
+
+
+def phase_online_warp(torch, np):
+    from hdpgpc_torch.data.loader import synthetic_growth_stream
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    y, _z = synthetic_growth_stream(**ONLINE_WARP)
+    x = np.arange(y.shape[1], dtype=np.float64)
+    from hdpgpc_torch.ops.spd_solve import spd_solve
+    runs, card = {}, None
+    for dev in ("cuda", "cpu"):
+        m = _growth_model(HDPGPC, y, "float64", dev)
+        part = {}
+
+        def stream(m=m, part=part):
+            for i in range(ONLINE_WARP_FREE):
+                m.include_sample_fast(x, y[i], with_warp=False)
+            part["births"] = m.M - 1
+            part["b0"] = spd_solve.launches
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(ONLINE_WARP_FREE,
+                           ONLINE_WARP_FREE + ONLINE_WARP_BEATS):
+                m.include_sample_fast(x, y[i], with_warp=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            part["secs"] = time.perf_counter() - t0
+            part["b"] = spd_solve.launches - part["b0"]
+        _, lc = _counted(lambda: _quiet(
+            stream, f"chip_smoke_online_warp_{dev}.log"))
+        runs[dev] = m
+        card = lc if dev == "cuda" else card
+        n, secs = ONLINE_WARP_BEATS, part["secs"]
+        _say("online_warp", f"{dev}: {ONLINE_WARP_FREE} beats without the "
+             f"warp ({part['births']} births), then {n} warped beats in "
+             f"{secs:.2f} s, {secs / n:.4f} s/beat, M {m.M}, "
+             f"{m.warp_counts['online'] / n:.3f} warps a beat "
+             f"({m.cfg.warp.train_iter_online} steps each), "
+             f"{part['b'] / n:.3f} kernel B a warped beat; launches in the "
+             f"whole stream {lc}")
+    a, b = runs["cuda"], runs["cpu"]
+    same = (a.M == b.M and len(a.resp_assigned) == len(b.resp_assigned)
+            and all(np.array_equal(p, q) for p, q in
+                    zip(a.resp_assigned, b.resp_assigned)))
+    _say("online_warp", f"identical decisions {same}, M {a.M} vs {b.M}")
+    if not same:
+        raise AssertionError("card and CPU warped streams disagree")
+    if a.M < 2:
+        raise AssertionError("no birth inside the streamed beats")
+    if min(card.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {card}")
+    return card
+
+
+def phase_ml_em(torch, np):
+    from hdpgpc_torch.data.loader import synthetic_beats
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    y, _z = synthetic_beats(2272, T=90, n_clusters=4, noise=0.05, seed=0)
+    y = y[:ML_EM_BEATS]
+    runs, card = {}, None
+    for dev in ("cuda", "cpu"):
+        m = _model(HDPGPC, y, 300, "float64", dev, bayesian_params=False)
+        secs, lc = _counted(lambda: _sweep(torch, np, m, y,
+                                           f"chip_smoke_ml_em_{dev}.log"))
+        runs[dev] = m
+        card = lc if dev == "cuda" else card
+        sweeps = len(m.train_elbo)
+        _say("ml_em", f"{dev}: sweeps {sweeps}, M {m.M}, {secs:.2f} s, "
+             f"{secs / max(sweeps, 1):.3f} s/sweep, launches {lc}")
+    same, rel = _same_sweeps(np, runs["cuda"], runs["cpu"])
+    _say("ml_em", f"identical partitions {same}, M {runs['cuda'].M} vs "
+         f"{runs['cpu'].M}, max ELBO rel diff {rel:.3e}")
+    if not same:
+        raise AssertionError("card and CPU ML-EM sweeps disagree")
+    if card["spd_solve"] <= 0:
+        raise AssertionError(f"kernel B was not launched: {card}")
+    return card
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -486,7 +687,9 @@ def main(argv=None):
     phase_device(torch)
     # launches stay null ("not measured") where their phase did not run
     rec = {}
-    launches = {k: {"offline": None, "online": None}
+    launches = {k: {"offline": None, "online": None, "warp": None,
+                    "warp_parity": None, "online_warp": None,
+                    "ml_em": None}
                 for k in ("spd_solve", "rbf_gram")}
     if "build" in phases or "kernels" in phases:
         phase_build()
@@ -502,6 +705,12 @@ def main(argv=None):
             launches[k]["online"] = v
     if "online_parity" in phases:
         phase_online_parity(torch, np)
+    for name, fn in (("warp", phase_warp), ("warp_parity", phase_warp_parity),
+                     ("online_warp", phase_online_warp),
+                     ("ml_em", phase_ml_em)):
+        if name in phases:
+            for k, v in fn(torch, np).items():
+                launches[k][name] = v
     src = {"spd_solve": ("hdpgpc_torch/csrc/spd_solve.cu",
                          "hdpgpc_tpu/ops/pallas/chol_solve.py:295"),
            "rbf_gram": ("hdpgpc_torch/csrc/rbf_gram.cu",

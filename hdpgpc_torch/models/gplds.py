@@ -598,7 +598,8 @@ def build_refit(T: int, est_limit: Optional[int] = None,
                 annealing: bool = True, dynamic: bool = True,
                 update_params: bool = True, pair_smooth: bool = True,
                 full_backward: bool = True, bucket: Optional[int] = None,
-                hybrid: bool = True, free_deg: Optional[float] = None):
+                emit_smoothed: bool = False, hybrid: bool = True,
+                free_deg: Optional[float] = None):
     """Build the refit for beat length T.
 
     Returns ``refit(Y, resp, state) -> RefitResult``. Batched: Y
@@ -612,8 +613,12 @@ def build_refit(T: int, est_limit: Optional[int] = None,
     ``full_backward=False`` (no final RTS pass), ``bucket`` (scan over
     that many gathered members; the caller guarantees bucket >= number
     of members), ``hybrid`` (sequential head + parallel frozen tail past
-    ``est_limit``). The reference's ``emit_smoothed`` (ML-EM) variant is
-    not ported (ROADMAP A11).
+    ``est_limit``). With ``emit_smoothed=True`` it returns
+    ``(RefitResult, (Y_s, f_sm, P_sm, m_s))``: the member-gathered beats
+    (J, Bs, T), the smoothed means (J, Bs, T, 1) and covariances
+    (J, Bs, T, T) in slot order, and the slot mask (J, Bs), which the
+    ML-EM path consumes (GPI.new_params_LDS works on smoothed moments,
+    GPI.py:302-455).
     """
     limit = math.inf if est_limit is None else float(est_limit)
     E_int = None if est_limit is None else max(int(est_limit), 1)
@@ -855,13 +860,20 @@ def build_refit(T: int, est_limit: Optional[int] = None,
             lds_val = lds_param_elbo(new_state, float(free_deg))
         else:
             lds_val = torch.zeros((Jn,), dtype=dtype, device=dev)
-        return RefitResult(q=q, q_lat=q_lat, snr=snr, state=new_state,
-                           lds=lds_val)
+        result = RefitResult(q=q, q_lat=q_lat, snr=snr, state=new_state,
+                             lds=lds_val)
+        if emit_smoothed:
+            return result, (Y_s, f_sm, P_sm, m_s)
+        return result
 
-    def refit(Y, resp, state: ClusterState) -> RefitResult:
+    def refit(Y, resp, state: ClusterState):
         if Y.ndim == 2:
-            res = _refit_core(Y[None], resp[None], stack_states([state]))
-            return tree_map(lambda x: x[0], res)
+            out = _refit_core(Y[None], resp[None], stack_states([state]))
+            if emit_smoothed:
+                res, smoothed = out
+                return (tree_map(lambda x: x[0], res),
+                        tuple(x[0] for x in smoothed))
+            return tree_map(lambda x: x[0], out)
         return _refit_core(Y, resp, state)
 
     return refit

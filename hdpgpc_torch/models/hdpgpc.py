@@ -11,15 +11,20 @@ reference; every heavy step runs on the model's device:
   beat online;
 * HMM forward/backward + hard responsibilities: ops/hmm;
 * kernel hyperparameter fits: models/kernel_fit (memoised per seed beat);
-* HDP stick-breaking (tiny, host numpy): ops/stick_breaking.
+* HDP stick-breaking (tiny, host numpy): ops/stick_breaking;
+* monotone warps: warp/monotone.py, a fixed-count Adam on the device,
+  in float64 whatever the compute dtype (as in the reference);
+* the ML-EM refit (bayesian_params=False): models/ml_em.py on the
+  smoothed moments of a refit.
 
 ``device`` defaults to "cuda" and raises without a card; "cpu" runs the
 kernels' plain versions.
-This package runs, without warp, the offline sweep ``include_batch``,
-the online steps ``include_sample`` and ``include_sample_fast``, and
-(models/stream_online.py) the fused stream engine; the rest of the
-reference's surface raises ``NotImplementedError`` naming its ROADMAP
-item.
+This package runs the offline sweep ``include_batch``, the online steps
+``include_sample`` and ``include_sample_fast`` (each with or without
+the warp, Bayesian or ML-EM), the post-hoc ``compute_warp_actual_state``
+and (models/stream_online.py) the fused stream engine (warp off,
+Bayesian); the rest of the reference's surface raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,13 +40,15 @@ import torch
 from hdpgpc_torch.config import GPConfig, HDPConfig, ModelConfig, WarpConfig
 from hdpgpc_torch.data.priors import redefine_default_priors
 from hdpgpc_torch.device import DEFAULT_DEVICE, resolve_device
-from hdpgpc_torch.models import gplds
+from hdpgpc_torch.models import gplds, ml_em
 from hdpgpc_torch.models.gplds import ClusterState
 from hdpgpc_torch.models.kernel_fit import fit_kernel, fit_kernel_batch
 from hdpgpc_torch.ops import hmm as hmm_ops
 from hdpgpc_torch.ops import stick_breaking as sb
 from hdpgpc_torch.ops.kernels import KernelParams
 from hdpgpc_torch.utils.metrics import MetricsLog, SweepMetrics
+from hdpgpc_torch.warp.monotone import (build_batch_warp, make_warp_prior,
+                                        warp_prior_score)
 
 # process-global kernel-hyperparameter fit memo, content-addressed by
 # (x_basis, seed beat, bounds, fit config): the Adam fit is a pure
@@ -149,8 +156,6 @@ class HDPGPC:
                 reestimate_initial_params=reestimate_initial_params,
                 compute_dtype=compute_dtype, hdp=HDPConfig.preset(hdp_hyp),
                 gp=gp_cfg, warp=warp_cfg, verbose=verbose)
-        if not config.bayesian_params:
-            _not_ported("bayesian_params=False (the ML-EM refit)", "A11")
         if config.gp.inducing_points or config.gp.variational_inducing:
             _not_ported("inducing-point kernel fits (SGPR/SVGP)", "A11")
         self.device = resolve_device(device)
@@ -221,6 +226,15 @@ class HDPGPC:
         self._dev_data: Dict = {}
         # per-lead stacked cluster states of the online fast path
         self._stack_cache: Dict[int, Tuple[tuple, ClusterState]] = {}
+        # batch warps keyed by (lead, representative beat); the warp
+        # optimisers (batch and online iteration counts) and priors
+        self._warp_cache: Dict = {}
+        self._warp_fn_batch = None
+        self._warp_fn_online = None
+        self._warp_priors: Dict = {}
+        # warps run (batch: one per (lead, representative) cache miss,
+        # online: one per beat and cluster) and batch-cache hits
+        self.warp_counts = {"batch": 0, "batch_hits": 0, "online": 0}
 
     # ------------------------------------------------------------------
     # cluster construction / refit plumbing
@@ -392,7 +406,12 @@ class HDPGPC:
 
     def _full_refit_batch_raw(self, jobs, update_params=True):
         """reinit + kernel fit + batched refit, grouped by scan bucket in
-        calls of at most _MAX_BATCH jobs."""
+        calls of at most _MAX_BATCH jobs. With bayesian_params=False a
+        parameter-updating refit is the ML-EM refit, one job at a time
+        (each runs its own host-level EM loop)."""
+        if update_params and not self.cfg.bayesian_params:
+            return [self._full_refit_ml(cl, ld, Y, rc)
+                    for (cl, ld, Y, rc) in jobs]
         self._prefetch_kernel_fits(jobs)
         N_all = jobs[0][2].shape[0]
         groups: Dict[Optional[int], list] = {}
@@ -431,6 +450,53 @@ class HDPGPC:
                     cl_out.lds_elbo = float(ldss[j])
                     results[i] = (qs[j], qls[j], snrs[j], cl_out)
         return results
+
+    def _refit_prog_ml(self, bucket=None):
+        """Scoring program of the ML-EM path: fixed-parameter filter +
+        RTS + scores, emitting the smoothed member sequences the EM
+        M-step consumes (GPI.new_params_LDS, GPI.py:302-455)."""
+        key = ("ml", bucket)
+        if key not in self._refits:
+            self._refits[key] = gplds.build_refit(
+                self.Tb, est_limit=self.cfg.gp.estimation_limit,
+                annealing=self.cfg.gp.annealing,
+                dynamic=self.cfg.gp.model_type == "dynamic",
+                update_params=False, pair_smooth=True, full_backward=True,
+                bucket=bucket, emit_smoothed=True)
+        return self._refits[key]
+
+    def _full_refit_ml(self, cl: Cluster, ld: int, Y: np.ndarray,
+                       resp_col: np.ndarray):
+        """ML-EM refit (bayesian_params=False): filter/smooth under the
+        current LDS params, run the masked EM on the smoothed member
+        moments (GPI_model.new_params, GPI_model.py:747-861), then
+        rescore under the fitted params. As in hdpgpc_tpu, the EM runs
+        once over the full member set rather than at the reference's
+        per-sample cadence inside the sweep.
+
+        Returns (q, q_lat, snr, Cluster)."""
+        st = gplds.reinit_cluster_state(cl.state,
+                                        float(self.cfg.gp.free_deg_mniw))
+        cl2 = Cluster(st, cl.fitted, cl.members, state_key=cl.state_key)
+        cl2 = self._maybe_kernel_fit(cl2, ld, Y, resp_col)
+        members = np.flatnonzero(resp_col > 0.99)
+        prog = self._refit_prog_ml(
+            bucket=self._bucket_for(members.size, Y.shape[0]))
+        Yj = self._dev_Y(Y)
+        rj = self._dev(resp_col)
+        res, (Y_s, f_sm, P_sm, m_s) = prog(Yj, rj, cl2.state)
+        st2 = cl2.state
+        if members.size >= 2 and self.cfg.gp.model_type == "dynamic":
+            A, G, C, S = ml_em.ml_update_masked(
+                st2.A, st2.Gamma, st2.C, st2.Sigma, Y_s[..., None],
+                f_sm, P_sm, m_s)
+            st2 = st2._replace(A=A, Gamma=G, C=C, Sigma=S)
+            res, _ = prog(Yj, rj, st2)
+        out = Cluster(res.state, cl2.fitted, members,
+                      state_key=cl2.state_key)
+        snr = res.snr.cpu().numpy() if self.cfg.use_snr \
+            else np.ones(Y.shape[0])
+        return res.q.cpu().numpy(), res.q_lat.cpu().numpy(), snr, out
 
     # ------------------------------------------------------------------
     # SNR fusion (GPI_HDP.py:663-756)
@@ -642,16 +708,267 @@ class HDPGPC:
                                       self.glob.start_alpha, self.glob.kappa)
             self.glob = sb.optimise_globals(self.glob, M=self.M + 1)
 
+    # ------------------------------------------------------------------
+    # Warp orchestration (identity when the warp is off, GPI_HDP.py:3441)
+    # ------------------------------------------------------------------
+
+    def _f64(self, a) -> torch.Tensor:
+        """A host array as a float64 tensor on the model's device: the
+        warp runs in float64 in both compute dtypes."""
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=self.device)
+
+    def _warp_prior(self):
+        T = self.Tb
+        prior = self._warp_priors.get(T)
+        if prior is None:
+            w = self.cfg.warp
+            prior = make_warp_prior(self._xb_dev, w.noise_warp,
+                                    w.bound_noise_warp)
+            self._warp_priors[T] = prior
+        return prior
+
+    def _build_warp(self, train_iter: int):
+        w = self.cfg.warp
+        return build_batch_warp(self.Tb, n_ctrl=w.n_ctrl, lr=w.lr,
+                                lam_s_base=w.lambda_smooth,
+                                lam_a_base=w.lambda_amp,
+                                train_iter=train_iter)
+
     def _warp_by_resp(self, x_trains, y_trains, resp, f_ind_old):
-        """Warp off: every cluster sees the raw beats (identity warp,
-        GPI_HDP.py:3441). Returns (y_w, x_w, liks)."""
-        if self.warp:
-            _not_ported("with_warp=True", "A12")
+        """Batched warp keyed by representative beats, cached per
+        (lead, ref-beat) (warp_batch_by_resp_amtgp_cached,
+        GPI_HDP.py:3412-3517): one warp of all N beats per (lead,
+        representative) against that beat, ``train_iter_batch`` Adam
+        steps. The noise is mean(diag Sigma) of the cluster, clamped into
+        bound_noise_warp (amtgp:611-617 via GPI_HDP.py:3383-3384).
+
+        Returns (y_w, x_w, liks): y_w (N, T, L, M) warped per cluster,
+        liks (N, M, L) (the warp's prior score counted twice, as in
+        hdpgpc_tpu: ``lik`` plus a fresh ``warp_prior_score``)."""
         N, T, L = y_trains.shape
         M = resp.shape[1]
-        y_w = np.broadcast_to(y_trains[..., None], (N, T, L, M))
-        x_w = np.broadcast_to(x_trains[..., None, None], (N, T, L, M))
-        return y_w, x_w, np.zeros((N, M, L))
+        if not self.warp:
+            y_w = np.broadcast_to(y_trains[..., None], (N, T, L, M))
+            x_w = np.broadcast_to(x_trains[..., None, None], (N, T, L, M))
+            return y_w, x_w, np.zeros((N, M, L))
+
+        if self._warp_fn_batch is None:
+            self._warp_fn_batch = self._build_warp(
+                self.cfg.warp.train_iter_batch)
+        prior = self._warp_prior()
+        y_w = np.empty((N, T, L, M))
+        x_w = np.empty((N, T, L, M))
+        liks = np.zeros((N, M, L))
+        lo, hi = self.cfg.warp.bound_noise_warp
+        for ld in range(L):
+            for m in range(M):
+                ref = int(f_ind_old[min(m, f_ind_old.shape[0] - 1)])
+                key = (ld, ref)
+                if key in self._warp_cache:
+                    xw, yw, lk = self._warp_cache[key]
+                    self.warp_counts["batch_hits"] += 1
+                else:
+                    self.warp_counts["batch"] += 1
+                    cl = self.clusters[ld][min(m, len(self.clusters[ld]) - 1)]
+                    n = float(np.clip(float(np.mean(np.diag(
+                        cl.state.Sigma.cpu().numpy()))), lo, hi))
+                    res = self._warp_fn_batch(
+                        self._xb_dev, self._f64(y_trains[:, :, ld]),
+                        self._f64(y_trains[ref, :, ld]), prior, 1.0, 1.0, n)
+                    lk = res.lik + warp_prior_score(prior, res.x_warp)
+                    xw, yw, lk = (a.cpu().numpy()
+                                  for a in (res.x_warp, res.y_warp, lk))
+                    self._warp_cache[key] = (xw, yw, lk)
+                y_w[:, :, ld, m] = yw
+                x_w[:, :, ld, m] = xw
+                liks[:, m, ld] = lk
+        return y_w, x_w, liks
+
+    def reset_warp_cache(self):
+        self._warp_cache = {}
+
+    def _warp_setup(self):
+        """The online warp optimiser (``train_iter_online`` Adam steps)
+        and the prior."""
+        if self._warp_fn_online is None:
+            self._warp_fn_online = self._build_warp(
+                self.cfg.warp.train_iter_online)
+        return self._warp_prior()
+
+    def _online_warp_inputs(self, cl: Cluster):
+        """The template C f_last (computed in the model dtype, then
+        float64) and the noise Sigma[0, 0] clamped into bound_noise_warp
+        (_safe_noise, amtgp:44-57) of one cluster."""
+        mean = (cl.state.C @ cl.state.f_last)[:, 0].to(torch.float64)
+        lo, hi = self.cfg.warp.bound_noise_warp
+        n = float(np.clip(float(cl.state.Sigma[0, 0]), lo, hi))
+        return mean, n
+
+    def _warp_one(self, y_ld, ld, m, prior):
+        """Warp one beat against cluster m; returns (y_w, x_w, lik)
+        (compute_warp inner call, GPI_HDP.py:3215-3224).
+
+        Reference semantics pinned here:
+        * the data-term noise is diag(cov)[0] CLAMPED into
+          bound_noise_warp (_safe_noise, amtgp:44-57);
+        * theta passed upstream is a scalar lengthscale, so the
+          theta->lambda mapping never fires (amtgp:380) — base lambdas
+          apply (rho = omega = 1);
+        * lik = MAP data log-lik of the warped beat under the template +
+          GP-prior score of the warp (GPI_HDP.py:3300)."""
+        mean, n = self._online_warp_inputs(self.clusters[ld][m])
+        self.warp_counts["online"] += 1
+        res = self._warp_fn_online(self._xb_dev, self._f64(y_ld[None, :]),
+                                   mean, prior, 1.0, 1.0, n)
+        lik = res.lik_data[0] + warp_prior_score(prior, res.x_warp)[0]
+        return (res.y_warp[0].cpu().numpy(), res.x_warp[0].cpu().numpy(),
+                float(lik))
+
+    def _compute_warp_y_online(self, y_ld, ld, force_model=None,
+                               method: Optional[str] = None):
+        """Online warp strategies (compute_warp_y, GPI_HDP.py:3153-3322):
+
+        * ``standard`` — warp against every non-empty cluster;
+        * ``greedy`` — rank clusters by estimate_new score, warp in
+          order until the gain-ratio gate closes (:3300-3313);
+        * ``greedy_bound`` — greedy order with a hard cap of 4 warps
+          (:3270-3276 ``if i >= 3: break``);
+        * ``force_model`` — warp only against that cluster (:3198-3226).
+
+        The reference's liks vector has ONE entry per model (length M)
+        and the birth candidate reads liks[-1]: the birth slot ALIASES
+        the last model's entry, with the final ``liks[-1] +=
+        max(liks[:-1])`` increment (GPI_HDP.py:3177-3181). The vector
+        returned has length M + 1, its birth slot a copy of entry M - 1.
+        At M == 1 the max runs over an empty slice (a crash in the
+        reference); here it is 0, as in hdpgpc_tpu."""
+        M = self.M
+        T = self.Tb
+        method = method or self.cfg.warp.method
+        prior = self._warp_setup()
+        base = float(warp_prior_score(
+            prior, torch.zeros((1, T), dtype=torch.float64,
+                               device=self.device))[0])
+        liks = np.full(M, base)
+
+        def _empty_max(a):
+            return a.max() if a.size else 0.0
+
+        def _done():
+            return y_w, x_w, np.concatenate([liks, liks[-1:]])
+
+        y_w = np.tile(y_ld[:, None], (1, M))
+        x_w = np.zeros((T, M))
+
+        if force_model is not None:
+            m = int(force_model)
+            if self.clusters[ld][m].members.size > 0:
+                y_w[:, m], x_w[:, m], liks[m] = self._warp_one(
+                    y_ld, ld, m, prior)
+            else:
+                liks[m] += _empty_max(liks[:-1])
+            liks[-1] += _empty_max(liks[:-1])
+            return _done()
+
+        if method == "standard":
+            for m in range(M):
+                if self.clusters[ld][m].members.size > 0:
+                    y_w[:, m], x_w[:, m], liks[m] = self._warp_one(
+                        y_ld, ld, m, prior)
+                else:
+                    liks[m] += _empty_max(liks[:-1])
+            liks[-1] += _empty_max(liks[:-1])
+            return _done()
+
+        # greedy / greedy_bound: rank clusters by estimate_new scores
+        # (one batched call over the lead's clusters)
+        q_C = gplds.estimate_new(
+            self._stacked_lead(ld),
+            self._dev(y_ld)[None].expand(M, T)).cpu().numpy()
+        order = np.argsort(-q_C)
+
+        if method == "greedy_bound":
+            for i, m in enumerate(order):
+                m = int(m)
+                if self.clusters[ld][m].members.size > 0:
+                    y_w[:, m], x_w[:, m], liks[m] = self._warp_one(
+                        y_ld, ld, m, prior)
+                else:
+                    liks[m] += liks[order[:i + 1]].max()
+                if i >= 3:
+                    break
+            liks[-1] += _empty_max(liks[:-1])
+            return _done()
+
+        if method != "greedy":
+            raise ValueError(f"unknown warp strategy {method!r} "
+                             "(standard | greedy | greedy_bound)")
+        for i, m in enumerate(order):
+            m = int(m)
+            cl = self.clusters[ld][m]
+            if cl.members.size == 0:
+                liks[m] += _empty_max(liks[:-1])
+                continue
+            y_w[:, m], x_w[:, m], liks[m] = self._warp_one(y_ld, ld, m,
+                                                           prior)
+            # greedy gate (GPI_HDP.py:3300-3313)
+            if i < M - 1 and i < 8:
+                num = q_C[m] + liks[m] * 0.5 - q_C[order[i + 1]]
+                den = q_C[m] - q_C[order[i + 1]]
+                n_mem = max(int(cl.members.size), 1)
+                if den != 0 and (num / den > 0.3 / (np.log(n_mem + 1))
+                                 or i == 5):
+                    for j_ in order[i + 1:]:
+                        liks[int(j_)] += liks[order[:i + 1]].max()
+                    liks[-1] += _empty_max(liks[:-1])
+                    break
+            else:
+                for j_ in order[i + 1:]:
+                    liks[int(j_)] += liks[order[:i + 1]].max()
+                liks[-1] += _empty_max(liks[:-1])
+                break
+        return _done()
+
+    def compute_warp_actual_state(self, x_trains, y_trains, q=None,
+                                  q_lat=None):
+        """Post-hoc warp of every assigned beat against its own cluster
+        (compute_warp_actual_state[_amtgp], GPI_HDP.py:949-1023), one
+        batched online-count warp per (lead, cluster).
+
+        Returns (q, q_lat, warp_computed, y_trains_w). When q/q_lat are
+        given they are rescored under the warped beats via fresh-state
+        refits, as in hdpgpc_tpu."""
+        y = np.asarray(y_trains, np.float64)
+        if y.ndim == 2:
+            y = y[:, :, None]
+        N, T, L = y.shape
+        y_w_out = y.copy()
+        self.x_w = np.zeros_like(y)
+        self.liks_w = np.zeros((N, L))
+        prior = self._warp_setup()
+        for ld in range(L):
+            for m, cl in enumerate(self.clusters[ld]):
+                idx = cl.members
+                if idx.size == 0:
+                    continue
+                mean, n = self._online_warp_inputs(cl)
+                res = self._warp_fn_online(self._xb_dev,
+                                           self._f64(y[idx, :, ld]), mean,
+                                           prior, 1.0, 1.0, n)
+                lk = res.lik_data + warp_prior_score(prior, res.x_warp)
+                y_w_out[idx, :, ld] = res.y_warp.cpu().numpy()
+                self.x_w[idx, :, ld] = res.x_warp.cpu().numpy()
+                self.liks_w[idx, ld] = lk.cpu().numpy()
+            if q is not None:
+                for m, cl in enumerate(self.clusters[ld]):
+                    rc = np.zeros(N)
+                    rc[cl.members] = 1.0
+                    q_col, ql_col, _snr, _cl = self._full_refit(
+                        cl, ld, y_w_out[:, :, ld], rc)
+                    q[:, m, ld] = q_col
+                    q_lat[:, m, ld] = ql_col
+        return q, q_lat, True, y_w_out
 
     # ------------------------------------------------------------------
     # Group bookkeeping (refill / grow / shrink)
@@ -712,9 +1029,7 @@ class HDPGPC:
         x_trains: (N, T) or (N, T, 1) time grids (shared grid assumed);
         y_trains: (N, T, L).
         """
-        if with_warp:
-            _not_ported("with_warp=True", "A12")
-        self.warp = False
+        self.warp = bool(with_warp)
         y = np.asarray(y_trains, np.float64)
         if y.ndim == 2:
             y = y[:, :, None]
@@ -1615,9 +1930,23 @@ class HDPGPC:
                      ) -> Cluster:
         """Online commit of one beat: kernel fit if first-ever, Kalman
         include + 1-step MNIW update WITHOUT pair smoothing
-        (GPI_HDP.py:2185-2197)."""
+        (GPI_HDP.py:2185-2197).
+
+        ML mode (bayesian_params=False): the include is a plain filter
+        step, and parameter re-estimation follows the new_params_weighted
+        cadence (GPI_model.py:874-887): a full masked EM over the
+        cluster's member history at cadence beats."""
         cl = self._maybe_kernel_fit_online(cl, ld, y)
-        return self._online_include(cl, y, t, True, False)
+        bayes = self.cfg.bayesian_params
+        out = self._online_include(cl, y, t, bayes, False)
+        members = out.members
+        if (not bayes and ml_em.reestimate_cadence(members.size)
+                and self._y_all is not None and members.size >= 2
+                and members[-1] < self._y_all.shape[0]):
+            rc = np.zeros(self._y_all.shape[0])
+            rc[members] = 1.0
+            out = self._full_refit_ml(out, ld, self._y_all[:, :, ld], rc)[3]
+        return out
 
     def _maybe_kernel_fit_online(self, cl: Cluster, ld: int, y: np.ndarray
                                  ) -> Cluster:
@@ -1644,9 +1973,11 @@ class HDPGPC:
     def _candidate_include(self, cl: Cluster, ld: int, y: np.ndarray,
                            t: int) -> Cluster:
         """Absorb-candidate include: Kalman + pair smoothing + MNIW
-        (GPI_HDP.py:2026-2032)."""
+        (GPI_HDP.py:2026-2032). In ML mode a plain filter step: as in
+        hdpgpc_tpu, no cadence EM on a one-step lookahead."""
         cl = self._maybe_kernel_fit_online(cl, ld, y)
-        return self._online_include(cl, y, t, True, True)
+        return self._online_include(cl, y, t, self.cfg.bayesian_params,
+                                    True)
 
     @staticmethod
     def _patch_q_lat_vals(col: np.ndarray, members_new: np.ndarray,
@@ -1751,8 +2082,9 @@ class HDPGPC:
         stacked = self._stacked_lead(ld)
         Ys = self._dev(np.stack([y_mod[:, ld, mm] for mm in range(M)]
                                 + [y_mod[:, ld, -1]]))
-        refit_abs = self._refit_prog(update_params=True, pair_smooth=True,
-                                     full_backward=False)
+        refit_abs = self._refit_prog(
+            update_params=self.cfg.bayesian_params, pair_smooth=True,
+            full_backward=False)
         refit_birth = self._refit_prog(update_params=False,
                                        pair_smooth=False,
                                        full_backward=False)
@@ -1794,13 +2126,19 @@ class HDPGPC:
         return self._fb_hard(q_w - q_w.max(axis=1, keepdims=True), startPi,
                              transPi)
 
-    def _online_begin(self, y, with_warp: bool, classify: bool):
+    def _online_begin(self, y, with_warp: bool, force_model,
+                      classify: bool):
         """Shared head of the online steps: scale and shape the beat,
-        grow the caches, and build the per-cluster inputs (warp off:
-        every cluster and the birth slot see the raw beat)."""
+        grow the caches, and build the per-cluster inputs and warp scores
+        (warp off: every cluster and the birth slot see the raw beat).
+
+        The warp's gate is the ``with_warp`` argument alone (reference
+        include_sample, GPI_HDP.py:1941-1951): an online run warps from
+        its second beat. The birth slot is scored on y warped to the LAST
+        model (y_mod[-1][-1], GPI_HDP.py:2002). ``liks`` is reassigned
+        for every lead, so the last lead's warp scores enter every
+        lead's row, as in the reference (GPI_HDP.py:1945-1951)."""
         t = self.T_count
-        if with_warp and t > 0:
-            _not_ported("with_warp=True", "A12")
         y = np.asarray(y, np.float64)
         if self._y_scale != 1.0:
             y = y / self._y_scale
@@ -1816,6 +2154,12 @@ class HDPGPC:
         M = self.M
         liks = np.zeros(M + 1)
         y_mod = np.broadcast_to(y[:, :, None], (self.Tb, L, M + 1)).copy()
+        if with_warp and t > 0:
+            for ld in range(L):
+                y_w_ld, _x_w_ld, liks = self._compute_warp_y_online(
+                    y[:, ld], ld, force_model)
+                y_mod[:, ld, :M] = y_w_ld
+                y_mod[:, ld, M] = y_w_ld[:, M - 1]
         q_aux = np.zeros((t + 1, M + 1, L)) - np.inf
         q_lat = np.zeros((t + 1, M + 1, L))
         if t > 0:
@@ -1910,10 +2254,10 @@ class HDPGPC:
                        force_model=None, classify: bool = False):
         """Include one streaming beat: score, decide birth vs absorb by
         ELBO over the whole history, commit, update the HDP globals
-        (GPI_HDP.py:1906-2208). Warp is not ported: ``with_warp`` must be
-        False from the second beat on (ROADMAP A12)."""
+        (GPI_HDP.py:1906-2208). ``with_warp`` warps the beat against the
+        clusters from the second beat on, by ``cfg.warp.method``."""
         t, L, M, liks, y_mod, q_aux, q_lat = self._online_begin(
-            y, with_warp, classify)
+            y, with_warp, force_model, classify)
         for ld in range(L):
             scores = self._score_last_all(ld, y_mod[:, ld, :M].T)
             for m in range(M):
@@ -2044,10 +2388,9 @@ class HDPGPC:
         * the birth candidate's q_lat column uses h_ini=0.5 and is scaled
           by 5.0 (GPI_HDP.py:2460, a reference quirk kept here).
 
-        Warp is not ported: ``with_warp`` must be False from the second
-        beat on (ROADMAP A12)."""
+        The warp is that of ``include_sample``."""
         t, L, M, liks, y_mod, q_aux, q_lat = self._online_begin(
-            y, with_warp, classify)
+            y, with_warp, force_model, classify)
         for ld in range(L):
             scores = self._score_last_all(ld, y_mod[:, ld, :M].T)
             q_aux[-1, :M, ld] = scores + liks[:M]

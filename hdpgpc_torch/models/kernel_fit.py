@@ -46,6 +46,18 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def adam_update(p, g, mu, nu, lr, bc1, bc2):
+    """One optax.adam step in optax's order of operations
+    (``scale_by_adam`` with eps outside the square root, ``scale(-lr)``,
+    ``apply_updates``). ``bc1``/``bc2`` are the bias corrections
+    1 - b1^count and 1 - b2^count of this step (floats, or tensors that
+    broadcast against p). Returns (p', mu', nu')."""
+    m = (1 - _B1) * g + _B1 * mu
+    v = (1 - _B2) * (g ** 2) + _B2 * nu
+    upd = (m / bc1) / (torch.sqrt(v / bc2 + 0.0) + _EPS)
+    return p + (-lr) * upd, m, v
+
+
 def _nll(raw_s, raw_l, raw_n, c, n_lb, n_ub, x, y):
     """Negative mean log marginal likelihood per lane: raw params (B,),
     x (T,), y (B, T) -> (B,)."""
@@ -88,10 +100,8 @@ def _adam_fit(x, Ys, n_lb, n_ub, max_iters: int, lr: float):
         bc1 = (1 - torch.pow(torch.full_like(cf, _B1), cf)).to(dt)
         bc2 = (1 - torch.pow(torch.full_like(cf, _B2), cf)).to(dt)
         for k, g in enumerate(grads):
-            m_k = (1 - _B1) * g + _B1 * mu[k]
-            v_k = (1 - _B2) * (g ** 2) + _B2 * nu[k]
-            upd = (m_k / bc1) / (torch.sqrt(v_k / bc2 + 0.0) + _EPS)
-            p_new = params[k] + (-lr) * upd
+            p_new, m_k, v_k = adam_update(params[k], g, mu[k], nu[k], lr,
+                                          bc1, bc2)
             params[k] = torch.where(active, p_new, params[k])
             mu[k] = torch.where(active, m_k, mu[k])
             nu[k] = torch.where(active, v_k, nu[k])

@@ -182,3 +182,52 @@ def test_stream_engine_on_card_matches_cpu(cuda):
     # three kernel B launches a beat on the card (absorb candidates,
     # birth, commit), one kernel A per kernel fit; none on the CPU
     assert a[4] == 3 * 60 and a[5] >= a[1] and b[4] == b[5] == 0
+
+
+def test_batch_warp_on_card_matches_cpu(cuda):
+    """build_batch_warp (B = 64, T = 90, 50 Adam steps, float64, the
+    template among the rows) on the card against the CPU: every output
+    to 1e-9 relative."""
+    from hdpgpc_torch.warp.monotone import build_batch_warp, make_warp_prior
+    T, B = 90, 64
+    t = np.arange(T) / T
+    rng = np.random.default_rng(3)
+    shifts = np.r_[0.0, rng.uniform(-0.1, 0.1, B - 1)]
+    Y = np.exp(-0.5 * ((t[None] - 0.5 - shifts[:, None]) / 0.08) ** 2)
+    Y[1:] += 0.01 * rng.standard_normal((B - 1, T))
+    out = {}
+    for dev in ("cpu", cuda):
+        x = torch.arange(T, dtype=torch.float64, device=dev)
+        prior = make_warp_prior(x, 0.05, (1e-6, 1e2))
+        r = build_batch_warp(T, train_iter=50)(
+            x, torch.tensor(Y, device=dev), torch.tensor(Y[0], device=dev),
+            prior, 1.0, 1.0, 0.02)
+        out[str(dev)] = [v.cpu().numpy() for v in r]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.max(np.abs(a - b)) <= 1e-9 * np.max(np.abs(b))
+
+
+def test_ml_refit_on_card_matches_cpu(cuda):
+    """One ML-EM refit (bayesian_params=False, float64) on the card
+    through kernel B against the CPU: scores and parameters to 1e-9
+    relative."""
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    T, N = 30, 40
+    rng = np.random.default_rng(4)
+    Y = np.sin(np.linspace(0, 6, T))[None] + 0.1 * rng.standard_normal(
+        (N, T))
+    rc = (np.arange(N) % 2 == 0).astype(np.float64)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = HDPGPC(np.arange(T, dtype=np.float64), ini_gamma=0.02,
+                   ini_sigma=0.1, ini_outputscale=1.5,
+                   bound_sigma=(0.005, 0.5), bayesian_params=False,
+                   device=dev)
+        b0 = spd_solve.launches
+        q, ql, _snr, cl = m._full_refit_ml(m.clusters[0][0], 0, Y, rc)
+        out[dev] = (q, ql, cl.state.A.cpu().numpy(),
+                    cl.state.Sigma.cpu().numpy(), spd_solve.launches - b0)
+    a, b = out["cuda"], out["cpu"]
+    for x, y in zip(a[:4], b[:4]):
+        assert np.max(np.abs(x - y)) <= 1e-9 * np.max(np.abs(y))
+    assert a[4] > 0 and b[4] == 0

@@ -23,7 +23,8 @@ from hdpgpc_tpu.utils import eval as jev
 def test_port_imports_no_jax():
     code = ("import sys, hdpgpc_torch, hdpgpc_torch.models.hdpgpc, "
             "hdpgpc_torch.convert, hdpgpc_torch.models.stream_online, "
-            "hdpgpc_torch.ops.sb_device; "
+            "hdpgpc_torch.ops.sb_device, hdpgpc_torch.warp.monotone, "
+            "hdpgpc_torch.models.ml_em; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'hdpgpc_tpu'))]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -8,7 +8,9 @@ start_beat=0, interval=15) with the priors of the growth stress test
 * include_sample over the first 40 beats: the same;
 * the port's engine at chunk 1 and 16: the port's include_sample_fast
   partition and hdpgpc_tpu's engine's;
-* the classify=True returns, compute_h / baum_welch, and the warp raise.
+* the classify=True returns and compute_h / baum_welch.
+
+The warp's online cases are in tests/test_torch_warp.py.
 
 The reference's include_sample runs in a subprocess with XLA's backend
 optimisation off: jaxlib 0.9.0's optimised CPU build of hmm.backward
@@ -243,13 +245,3 @@ def test_compute_h_and_baum_welch_match_jax(jax_include_sample,
         mt.cfg = cfg
     np.testing.assert_array_equal(pi0, ref["bw0_pi"])
     np.testing.assert_array_equal(tr0, ref["bw0_trans"])
-
-
-@pytest.mark.parametrize("method", ["include_sample", "include_sample_fast"])
-def test_warp_raises_from_the_second_beat(method):
-    m = _model(TorchHDPGPC, device="cpu")
-    with contextlib.redirect_stdout(io.StringIO()):
-        getattr(m, method)(X, Y[0], with_warp=True)   # t = 0: no warp
-    with pytest.raises(NotImplementedError, match="A12"):
-        getattr(m, method)(X, Y[1], with_warp=True)
-    assert m.T_count == 1
