@@ -50,7 +50,30 @@ Phases (each prints a line; any failure raises and exits non-zero):
     s/beat and warps a beat of the warped part;
 11. ml_em: the offline sweep with bayesian_params=False (the ML-EM
     refit) in float64 on the first 200 beats of the slice, card against
-    CPU: identical partitions; the card's s/sweep and kernel B launches.
+    CPU: identical partitions; the card's s/sweep and kernel B launches;
+12. reload: the supervised path on the warp phase's beats (2272 x 2
+    leads, float32): reload_model_from_labels on the first 2000 with
+    their labels, then cluster_new_batch on the other 272 without and
+    with learning (it_limit=2): seconds, accuracy, M and launches of
+    each; then the same on the first 300 beats (250 + 50) in float64,
+    card against CPU: identical labels, ELBO to 1e-9;
+13. checkpoint: save_swgp of the reload model, load_swgp on the card and
+    on the CPU: identical cluster_new_batch labels from all three; the
+    file's bytes, save and load seconds;
+14. stream: the frozen-cluster classifier (models/streaming.py) at
+    BASELINE config 5's width (K = 64, T = 90, float32, templates from
+    a 50 K-beat warm-up), the chunk sized from the free device memory:
+    one untimed chunk, then 65,536 beats timed: beats/s, ms a chunk,
+    kernel-B launches a chunk, peak memory, the idle share of one
+    profiled chunk, accuracy >= 0.95, counts summing to the beats
+    streamed, finite states; kernel B timed at the classifier's two
+    shapes; then 2,048 beats at K = 8 in float64, card against CPU:
+    identical labels, f and P to 1e-9;
+15. inducing: fit_kernel_sgpr and fit_kernel_svgp on a beat of T = 90
+    in float64, card against CPU (at capped iterations, as the CPU tests
+    hold them against hdpgpc_tpu), one full SGPR fit timed on the card;
+    include_batch with inducing_points=True on 200 beats in float64 for
+    two sweeps, card against CPU: identical partitions.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Logs of the sweeps go to
@@ -72,7 +95,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "parity", "online",
-          "online_parity", "warp", "warp_parity", "online_warp", "ml_em")
+          "online_parity", "warp", "warp_parity", "online_warp", "ml_em",
+          "reload", "checkpoint", "stream", "inducing")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 # kernel B: max |X - X64| / (|X64| + 1e-3) against a float64 truth
@@ -111,6 +135,23 @@ ONLINE_WARP = dict(n=256, T=90, n_clusters=4, seed=7, start_beat=0,
                    interval=40)
 ONLINE_WARP_FREE, ONLINE_WARP_BEATS = 44, 24
 ML_EM_BEATS = 200
+# the supervised path: labelled beats, new beats; its float64 parity
+RELOAD_TRAIN, RELOAD_LEARN_SWEEPS = 2000, 2
+RELOAD_PARITY_TRAIN, RELOAD_PARITY_NEW = 250, 50
+# the frozen-cluster classifier: BASELINE config 5 (docs/STRESS.md) and
+# examples/run_stress_stream.py's templates and priors; the timed beats
+# are one generation block of that run's 1M beats
+STREAM_K, STREAM_T, STREAM_TIMED = 64, 90, 65536
+STREAM_PRIORS = dict(ini_gamma=0.001, ini_sigma=0.05)
+STREAM_MIN_ACC = 0.95
+STREAM_PARITY_K, STREAM_PARITY_BEATS, STREAM_PARITY_CHUNK = 8, 2048, 512
+# the inducing phase: the fits held card against CPU at the iteration
+# counts of tests/test_torch_kernel_fit_inducing.py (past them rounding
+# decides steps that start at zero gradients); the sweep's inducing fits
+# capped at 300 Adam iterations (5000 by default: ~10 fits a sweep, each
+# 5000 iterations, would take minutes of CPU on its half)
+INDUCING_FIT_ITERS = {"sgpr": 200, "svgp": 20}
+INDUCING_BEATS, INDUCING_SWEEPS, INDUCING_SWEEP_ITERS = 200, 2, 300
 
 
 def _say(phase: str, msg: str) -> None:
@@ -666,6 +707,339 @@ def phase_ml_em(torch, np):
     return card
 
 
+def _timed(torch, fn, sync=True):
+    """fn's result and its seconds (synchronised on the card)."""
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if sync:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _reload_model(np, HDPGPC, y, z, dtype, device, n_train):
+    """A model of the slice's configuration reloaded from the labels of
+    the first ``n_train`` beats (priors from those beats)."""
+    x = np.tile(np.arange(y.shape[1], dtype=np.float64), (n_train, 1))
+    m = _model(HDPGPC, y[:n_train], SLICE_EST_LIMIT, dtype, device)
+    return m, lambda: m.reload_model_from_labels(
+        x, y[:n_train], z[:n_train], M=int(z.max()) + 1)
+
+
+def _new_x(np, y):
+    return np.tile(np.arange(y.shape[1], dtype=np.float64), (y.shape[0], 1))
+
+
+def phase_reload(torch, np):
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    y, z = _warp_beats()
+    n = RELOAD_TRAIN
+    y_new, z_new = y[n:], z[n:]
+    model, reload = _reload_model(np, HDPGPC, y, z, "float32", "cuda", n)
+    launches = {}
+    (_, secs), launches["reload"] = _counted(lambda: _timed(
+        torch, lambda: _quiet(reload, "chip_smoke_reload.log")))
+    (lab, secs_new), launches["classify"] = _counted(lambda: _timed(
+        torch, lambda: _quiet(lambda: model.cluster_new_batch(
+            _new_x(np, y_new), y_new), "chip_smoke_reload_classify.log")))
+    acc_new = float(np.mean(lab == z_new))
+    _say("reload", f"{n} beats x {y.shape[2]} leads reloaded from labels "
+         f"in {secs:.2f} s, M {model.M}, ELBO {model.train_elbo[-1]:.6f}, "
+         f"launches {launches['reload']}; cluster_new_batch on "
+         f"{y_new.shape[0]} beats in {secs_new:.3f} s, accuracy "
+         f"{acc_new:.4f}, launches {launches['classify']}")
+    (lab_l, secs_l), launches["learn"] = _counted(lambda: _timed(
+        torch, lambda: _quiet(lambda: model.cluster_new_batch(
+            _new_x(np, y_new), y_new, learning=True,
+            it_limit=RELOAD_LEARN_SWEEPS), "chip_smoke_reload_learn.log")))
+    # learning reorders the clusters by size: count the beats off their
+    # cluster's majority label
+    err_l = _majority_error(np, lab_l, z)
+    _say("reload", f"cluster_new_batch(learning=True, it_limit="
+         f"{RELOAD_LEARN_SWEEPS}) on {y_new.shape[0]} new beats: "
+         f"{secs_l:.2f} s, {len(model.train_elbo) - 1} sweeps, M {model.M}, "
+         f"majority-label error over all {lab_l.shape[0]} beats {err_l}, "
+         f"launches {launches['learn']}")
+    if not all(math.isfinite(e) for e in model.train_elbo):
+        raise AssertionError("non-finite ELBO")
+    if acc_new < 0.95:
+        raise AssertionError(f"new-beat accuracy {acc_new} < 0.95")
+    for k, lc in launches.items():
+        if lc["spd_solve"] <= 0:
+            raise AssertionError(f"kernel B not launched in {k}: {lc}")
+    if launches["reload"]["rbf_gram"] <= 0:
+        raise AssertionError("kernel A not launched in the reload")
+    snapshot = _save(model)
+    _reload_parity(torch, np, y, z)
+    total = {k: sum(lc[k] for lc in launches.values())
+             for k in ("spd_solve", "rbf_gram")}
+    return total, snapshot
+
+
+def _save(model):
+    """(the checkpoint path, the seconds save_swgp took, the model): the
+    model saved as a format-2 checkpoint under chiprun_out/."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "chip_smoke_reload.npz")
+    t0 = time.perf_counter()
+    model.save_swgp(path)
+    return path, time.perf_counter() - t0, model
+
+
+def _reload_parity(torch, np, y, z):
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    n, k = RELOAD_PARITY_TRAIN, RELOAD_PARITY_NEW
+    y, z = y[:n + k], z[:n + k]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m, reload = _reload_model(np, HDPGPC, y, z, "float64", dev, n)
+        t0 = time.perf_counter()
+
+        def run(m=m, reload=reload):
+            reload()
+            a = m.resp_assigned[-1].copy()
+            b = m.cluster_new_batch(_new_x(np, y[n:]), y[n:])
+            c = m.cluster_new_batch(_new_x(np, y[n:]), y[n:], learning=True,
+                                    it_limit=RELOAD_LEARN_SWEEPS)
+            return a, b, c
+        labs = _quiet(run, f"chip_smoke_reload_parity_{dev}.log")
+        out[dev] = (m, labs)
+        _say("reload", f"parity {dev}: {n} + {k} beats float64 in "
+             f"{time.perf_counter() - t0:.2f} s, M {m.M}")
+    (a, la), (b, lb) = out["cuda"], out["cpu"]
+    same = all(np.array_equal(u, v) for u, v in zip(la, lb))
+    same_sweeps, rel = _same_sweeps(np, a, b)
+    _say("reload", f"parity: identical labels {same and same_sweeps}, M "
+         f"{a.M} vs {b.M}, max ELBO rel diff {rel:.3e}")
+    if not (same and same_sweeps and rel <= 1e-9):
+        raise AssertionError("card and CPU supervised paths disagree")
+
+
+def phase_checkpoint(torch, np, snapshot):
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    path, secs_save, model = snapshot
+    y, _z = _warp_beats()
+    y_new = y[RELOAD_TRAIN:]
+    loaded = {}
+    for dev in ("cuda", "cpu"):
+        loaded[dev], secs = _timed(torch, lambda: HDPGPC.load_swgp(
+            path, device=dev))
+        _say("checkpoint", f"load_swgp on {dev}: {secs:.3f} s")
+    labels, lc = _counted(lambda: [_quiet(
+        lambda m=m: m.cluster_new_batch(_new_x(np, y_new), y_new),
+        "chip_smoke_checkpoint.log")
+        for m in (model, loaded["cuda"], loaded["cpu"])])
+    same = all(np.array_equal(labels[0], x) for x in labels[1:])
+    _say("checkpoint", f"{os.path.getsize(path)} bytes, save_swgp "
+         f"{secs_save:.3f} s; identical cluster_new_batch labels "
+         f"(card model, loaded on the card, loaded on the CPU) {same}; "
+         f"launches {lc}")
+    if not same:
+        raise AssertionError("a loaded checkpoint labels otherwise")
+    if lc["spd_solve"] <= 0:
+        raise AssertionError(f"kernel B not launched: {lc}")
+    return lc
+
+
+def _stream_beats(np, K, T, n):
+    """Templates as examples/run_stress_stream.py:180-185 builds them,
+    the class means of a 50 K-beat warm-up, and ``n`` beats to stream
+    (y (n, T), z). Warm-up and stream come from ONE seeded call:
+    synthetic_beats draws the morphologies from its seed, and the
+    example's templates (seed 0) and blocks (seed 1 + done) would hold
+    other morphologies; tests/test_parallel.py:95-109 does the same."""
+    from hdpgpc_torch.data.loader import synthetic_beats
+    W = 50 * K
+    y, z = synthetic_beats(W + n, T=T, n_clusters=K, noise=0.05, seed=0)
+    tmpl = np.stack([y[:W][z[:W] == k][:, :, 0].mean(0) for k in range(K)])
+    return tmpl, y[W:, :, 0], z[W:]
+
+
+def _idle_share(torch, fn, table=None):
+    """1 - (device time of the kernels) / (wall time) over one call of
+    fn under torch.profiler; None where the profiler shows no device
+    time. ``table``: a file under chiprun_out/ for the profiler's table
+    of device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    if table:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        key = "self_device_time_total" if hasattr(
+            prof.key_averages()[0], "self_device_time_total") \
+            else "self_cuda_time_total"
+        with open(os.path.join(OUT_DIR, table), "w") as f:
+            f.write(prof.key_averages().table(sort_by=key, row_limit=30))
+    if dev_us <= 0:
+        return None, wall
+    return 1.0 - dev_us * 1e-6 / wall, wall
+
+
+def phase_stream(torch, np):
+    from hdpgpc_torch.models import streaming
+    from hdpgpc_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from hdpgpc_torch.utils.kernel_timing import spd_solve_bound
+    K, T, dev = STREAM_K, STREAM_T, torch.device("cuda")
+    chunk = streaming.stream_chunk(K, T, torch.float32,
+                                   streaming.free_memory(dev))
+    tmpl, y, z = _stream_beats(np, K, T, chunk + STREAM_TIMED)
+    st = streaming.init_stream_state(
+        torch.as_tensor(tmpl, dtype=torch.float32, device=dev),
+        **STREAM_PRIORS)
+    Y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    (st, lab0), secs0 = _timed(torch, lambda: streaming.stream_classify(
+        st, Y[:chunk], chunk=chunk))
+    n_chunks = -(-STREAM_TIMED // chunk)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ((st, lab), secs), lc = _counted(lambda: _timed(
+        torch, lambda: streaming.stream_classify(st, Y[chunk:],
+                                                 chunk=chunk)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    labels = np.concatenate([lab0, lab])
+    acc = float(np.mean(labels == z))
+    counted = float(st.counts.sum())
+    finite = all(bool(torch.isfinite(v).all()) for v in st)
+    idle, wall = _idle_share(torch, lambda: streaming.stream_classify(
+        st, Y[chunk:2 * chunk], chunk=chunk), table="profile_stream.txt")
+    idle_s = "not measured" if idle is None else f"{idle:.3f}"
+    _say("stream", f"K {K}, T {T}, float32, chunk {chunk} (from "
+         f"{streaming.free_memory(dev) / 2**30:.1f} GiB free now; "
+         f"{streaming.LIVE_TT_PER_BEAT} (T, T) a cluster and beat in "
+         f"{streaming.CHUNK_MEMORY_FRACTION} of it); first chunk "
+         f"{secs0:.3f} s untimed; {STREAM_TIMED} beats in {secs:.3f} s: "
+         f"{STREAM_TIMED / secs:.1f} beats/s, {1e3 * secs / n_chunks:.2f} "
+         f"ms a chunk ({n_chunks} chunks), kernel B {lc['spd_solve']} "
+         f"launches ({lc['spd_solve'] / n_chunks:.2f} a chunk), peak "
+         f"memory {peak / 2**30:.3f} GiB ({peak / (chunk * K * T * T * 4):.2f}"
+         f" (T, T) a cluster and beat), accuracy {acc:.4f}, counts "
+         f"{counted:.0f} of {labels.shape[0]}, finite {finite}; one "
+         f"profiled chunk {wall:.3f} s, idle share {idle_s}")
+    if acc < STREAM_MIN_ACC:
+        raise AssertionError(f"stream accuracy {acc} < {STREAM_MIN_ACC}")
+    if counted != labels.shape[0] or not finite:
+        raise AssertionError("stream counts or states wrong")
+    if lc["spd_solve"] <= 0:
+        raise AssertionError(f"kernel B not launched: {lc}")
+    # kernel B at the classifier's two shapes: the scores (K systems
+    # against the chunk's beats) and the filter elements' shared solve
+    # (against [(Q H')', H, the beats])
+    rec = {}
+    for R in (chunk, 2 * T + chunk):
+        spd_h, _ = _spd_inputs(np, K, T, R, 5.0)
+        rhs_h = np.random.default_rng(R).standard_normal((K, T, R)) * 12.0
+        spd = torch.as_tensor(spd_h, dtype=torch.float32, device=dev)
+        rhs = torch.as_tensor(rhs_h, dtype=torch.float32, device=dev)
+        X = spd_solve(spd, rhs)
+        Xp = spd_solve_plain(spd, rhs)
+        X64 = spd_solve_plain(spd.double(), rhs.double())
+        torch.cuda.synchronize()
+        err = float(((X.double() - X64).abs() / (X64.abs() + 1e-3)).max())
+        dkp = float((X - Xp).abs().max())
+        t = _timings(lambda: spd_solve(spd, rhs),
+                     lambda: spd_solve_plain(spd, rhs),
+                     lambda: torch.linalg.solve(spd, rhs),
+                     spd_solve_bound(K, T, R, torch.float32))
+        _say("stream", f"spd_solve ({K},{T},{T}) x R {R} float32: kernel "
+             f"err {err:.3e} (bar {SOLVE_BAR['float32']:.0e}), max|kernel-"
+             f"plain| {dkp:.3e}; " + _fmt_times(t))
+        if not err < SOLVE_BAR["float32"]:
+            raise AssertionError(f"spd_solve R={R} err {err}")
+        rec[f"{K}x{T}x{T}xR{R}"] = {"float32": dict(max_abs_err=dkp, **t)}
+    _stream_parity(torch, np)
+    return lc, rec
+
+
+def _stream_parity(torch, np):
+    from hdpgpc_torch.models import streaming
+    K, T = STREAM_PARITY_K, STREAM_T
+    tmpl, y, _z = _stream_beats(np, K, T, STREAM_PARITY_BEATS)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = streaming.init_stream_state(
+            torch.as_tensor(tmpl, dtype=torch.float64, device=dev),
+            **STREAM_PRIORS)
+        (st, lab), secs = _timed(torch, lambda: streaming.stream_classify(
+            st, y, chunk=STREAM_PARITY_CHUNK), sync=dev == "cuda")
+        out[dev] = (st, lab)
+        _say("stream", f"parity {dev}: {STREAM_PARITY_BEATS} beats, K {K}, "
+             f"float64, chunk {STREAM_PARITY_CHUNK}: {secs:.2f} s")
+    (a, la), (b, lb) = out["cuda"], out["cpu"]
+    rel = {f: float((getattr(a, f).cpu() - getattr(b, f)).abs().max()
+                    / getattr(b, f).abs().max()) for f in ("f", "P", "fmsg")}
+    same = np.array_equal(la, lb)
+    counts = bool(torch.equal(a.counts.cpu(), b.counts))
+    _say("stream", f"parity: identical labels {same}, counts equal "
+         f"{counts}, rel diff " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in rel.items()))
+    if not (same and counts and rel["f"] <= 1e-9 and rel["P"] <= 1e-9):
+        raise AssertionError("card and CPU classifiers disagree")
+
+
+def phase_inducing(torch, np):
+    import dataclasses
+    from hdpgpc_torch.data.loader import synthetic_beats
+    from hdpgpc_torch.models import kernel_fit
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    y, _z = synthetic_beats(2272, T=90, n_clusters=4, noise=0.05, seed=0)
+    x = np.arange(90, dtype=np.float64)
+    yb = y[0, :, 0]
+    bs = (0.01 * float(np.std(yb)) ** 2, float(np.std(yb)) ** 2)
+    for name, iters in INDUCING_FIT_ITERS.items():
+        fit = getattr(kernel_fit, f"fit_kernel_{name}")
+        res = {}
+        for dev in ("cuda", "cpu"):
+            res[dev], secs = _timed(torch, lambda: fit(
+                x, yb, bs, max_iters=iters, device=dev), sync=dev == "cuda")
+            _say("inducing", f"fit_kernel_{name} {iters} iterations on "
+                 f"{dev}: {secs:.3f} s")
+        (ta, Za), (tb, Zb) = res["cuda"], res["cpu"]
+        rel = max(abs(float(u) - float(v)) / abs(float(v))
+                  for u, v in zip(ta, tb))
+        dz = float((Za.cpu() - Zb).abs().max())
+        _say("inducing", f"fit_kernel_{name}: theta rel diff {rel:.3e}, "
+             f"max |dZ| {dz:.3e} (bars 1e-6, 1e-5)")
+        if not (rel <= 1e-6 and dz <= 1e-5):
+            raise AssertionError(f"card and CPU {name} fits disagree")
+    (th, _Z), secs = _timed(torch, lambda: kernel_fit.fit_kernel_sgpr(
+        x, yb, bs, device="cuda"))
+    _say("inducing", f"fit_kernel_sgpr to its plateau stop (at most 5000 "
+         f"iterations) on the card: {secs:.2f} s, theta "
+         f"{[round(float(v), 6) for v in th]}")
+    yp = y[:INDUCING_BEATS]
+    runs, card = {}, None
+    for dev in ("cuda", "cpu"):
+        m = _model(HDPGPC, yp, 300, "float64", dev, inducing_points=True)
+        m.cfg = dataclasses.replace(m.cfg, gp=dataclasses.replace(
+            m.cfg.gp, kernel_fit_iters_inducing=INDUCING_SWEEP_ITERS))
+        secs, lc = _counted(lambda: _sweep(
+            torch, np, m, yp, f"chip_smoke_inducing_{dev}.log",
+            it_limit=INDUCING_SWEEPS))
+        runs[dev] = m
+        card = lc if dev == "cuda" else card
+        _say("inducing", f"include_batch(inducing_points=True) {dev}: "
+             f"sweeps {len(m.train_elbo)}, M {m.M}, {secs:.2f} s, launches "
+             f"{lc}")
+    same, rel = _same_sweeps(np, runs["cuda"], runs["cpu"])
+    _say("inducing", f"identical partitions {same}, M {runs['cuda'].M} vs "
+         f"{runs['cpu'].M}, max ELBO rel diff {rel:.3e}")
+    if not same:
+        raise AssertionError("card and CPU inducing sweeps disagree")
+    if min(card.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {card}")
+    return card
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -687,9 +1061,10 @@ def main(argv=None):
     phase_device(torch)
     # launches stay null ("not measured") where their phase did not run
     rec = {}
-    launches = {k: {"offline": None, "online": None, "warp": None,
-                    "warp_parity": None, "online_warp": None,
-                    "ml_em": None}
+    launches = {k: {p: None for p in ("offline", "online", "warp",
+                                      "warp_parity", "online_warp", "ml_em",
+                                      "reload", "checkpoint", "stream",
+                                      "inducing")}
                 for k in ("spd_solve", "rbf_gram")}
     if "build" in phases or "kernels" in phases:
         phase_build()
@@ -711,6 +1086,29 @@ def main(argv=None):
         if name in phases:
             for k, v in fn(torch, np).items():
                 launches[k][name] = v
+    snapshot = None
+    if "reload" in phases:
+        lc, snapshot = phase_reload(torch, np)
+        for k, v in lc.items():
+            launches[k]["reload"] = v
+    if "checkpoint" in phases:
+        if snapshot is None:
+            from hdpgpc_torch.models.hdpgpc import HDPGPC
+            y, z = _warp_beats()
+            model, reload = _reload_model(np, HDPGPC, y, z, "float32",
+                                          "cuda", RELOAD_TRAIN)
+            _quiet(reload, "chip_smoke_reload.log")
+            snapshot = _save(model)
+        for k, v in phase_checkpoint(torch, np, snapshot).items():
+            launches[k]["checkpoint"] = v
+    stream_shapes = {}
+    if "stream" in phases:
+        lc, stream_shapes = phase_stream(torch, np)
+        for k, v in lc.items():
+            launches[k]["stream"] = v
+    if "inducing" in phases:
+        for k, v in phase_inducing(torch, np).items():
+            launches[k]["inducing"] = v
     src = {"spd_solve": ("hdpgpc_torch/csrc/spd_solve.cu",
                          "hdpgpc_tpu/ops/pallas/chol_solve.py:295"),
            "rbf_gram": ("hdpgpc_torch/csrc/rbf_gram.cu",
@@ -731,6 +1129,7 @@ def main(argv=None):
                 f"{n}x{T}x{T}": {d: rec[f"spd_solve_{n}x{T}x{T}_{d}"]
                                  for d in ("float32", "float64")}
                 for (n, T) in SOLVE_TIMED if (n, T) != (16, 90)}
+            entry["shapes"].update(stream_shapes)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

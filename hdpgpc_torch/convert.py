@@ -8,6 +8,11 @@ imports no JAX. ``stream_state_from_numpy`` does the same for the
 stream engine's carry, and ``online_caches_from_numpy`` copies a model's
 online caches and HDP globals (numpy in both packages), so that both
 packages can go on from one mid-stream state.
+``frozen_stream_state_from_numpy`` builds the frozen-cluster
+classifier's state (models/streaming.py). ``tree_leaves`` and
+``tree_unflatten`` flatten a state in ``jax.tree.leaves`` order
+(NamedTuple fields depth-first), the order of the checkpoints' per-leaf
+keys, which both packages write and read.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from hdpgpc_torch.models.gplds import ClusterState
 from hdpgpc_torch.models.mniw import MNIW
+from hdpgpc_torch.models import streaming
 from hdpgpc_torch.models.stream_online import StreamState
 from hdpgpc_torch.ops.kernels import KernelParams
 from hdpgpc_torch.ops.stick_breaking import HDPGlobals
@@ -93,4 +99,38 @@ def online_caches_from_numpy(d) -> dict:
     out["T_count"] = int(d.T_count)
     out["glob"] = HDPGlobals(**{f.name: getattr(d.glob, f.name)
                                 for f in dataclasses.fields(HDPGlobals)})
+    return out
+
+
+def frozen_stream_state_from_numpy(d, device="cpu", dtype=torch.float64
+                                   ) -> streaming.StreamState:
+    """The frozen-cluster classifier's state, every field in ``dtype``
+    (hdpgpc_tpu's ``counts`` may come as float64 in a float32 state:
+    it is compared by value)."""
+    return streaming.StreamState(*[_t(getattr(d, f), device, dtype)
+                                   for f in streaming.StreamState._fields])
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a NamedTuple tree in ``jax.tree.leaves`` order."""
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_unflatten(proto, leaves, device="cpu"):
+    """A tree shaped like ``proto`` from ``leaves`` (numpy or tensors,
+    in ``tree_leaves`` order), each leaf on ``device`` in the dtype of
+    the prototype's leaf."""
+    it = iter(leaves)
+
+    def build(p):
+        if isinstance(p, tuple):
+            return type(p)(*[build(x) for x in p])
+        return torch.as_tensor(np.asarray(next(it)), dtype=p.dtype,
+                               device=device)
+
+    out = build(proto)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the prototype")
     return out

@@ -16,7 +16,9 @@ a per-job branch ``jnp.where(first, ...)`` becomes ``torch.where`` on a
 over the member slots; its associative scans use ``ops.scan``.
 
 The online single-sample primitives (``log_sq_error_last``,
-``estimate_new``, ``q_lat_tail``) sit at the end of the module.
+``estimate_new``, ``q_lat_tail``) and the GP observation APIs
+(``observe``, ``observe_latent``, ``sample_observations``,
+``kl_divergence``) sit at the end of the module.
 
 Every step's SPD systems {S_innov, P_pred, V_int, V_obs} are solved by
 ONE call, ``ops.spd_solve.spd_solve`` on (4 J, T, T): kernel B on the
@@ -951,3 +953,111 @@ def q_lat_tail(state: ClusterState, h_ini=1.0):
     val_last = score(state.f_sm_last, state.f_sm_prev, state.P_sm_prev,
                      state.A, state.Gamma)
     return val_first, val_prev, val_last
+
+
+# ---------------------------------------------------------------------------
+# GP observation / resampling APIs (IterativeGaussianProcess surface,
+# gplds.py:1093-1195). One unbatched cluster state each; the grids are
+# taken to the state's device and dtype.
+# ---------------------------------------------------------------------------
+
+def _grid(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=like.dtype,
+                           device=like.device).reshape(-1)
+
+
+def _same_grid(x_post: torch.Tensor, x_basis: torch.Tensor):
+    """A device bool (no host read) when the two grids have one length,
+    else None."""
+    if x_post.shape[0] != x_basis.shape[0]:
+        return None
+    return torch.all(x_post == x_basis)
+
+
+def observe(state: ClusterState, x_post, x_basis,
+            use_smoothed: bool = False):
+    """The emission distribution at arbitrary inputs x_post through the
+    GP projection K(x*, X) K(X, X)^-1 (GPI.pred_dist, GPI.py:457-503);
+    on the shared grid it is (C f, Sigma). The Grams are kernel A on the
+    card (ops/kernels.gram)."""
+    f = state.f_sm_last if use_smoothed else state.f_last
+    mean = state.C @ f
+    x_post, x_basis = _grid(x_post, mean), _grid(x_basis, mean)
+    same = _same_grid(x_post, x_basis)
+    K_XX = gram(state.theta, x_basis, x_basis)
+    K_XXs = gram(state.theta, x_basis, x_post)
+    K_XsXs = gram(state.theta, x_post, include_noise=True)
+    jitter = 1e-4 * linalg.diag_mean(state.Sigma)
+    L = linalg.chol(linalg.sym(K_XX) + jitter * _eye(K_XX.shape[0], mean))
+    K_solve = linalg.cho_solve(L, K_XXs)
+    f_star = _t(K_solve) @ mean
+    cov_f = K_XsXs - _t(K_XXs) @ K_solve + _t(K_solve) @ state.Sigma \
+        @ K_solve
+    cov_f = linalg.sym(cov_f) + 1e-6 * _eye(cov_f.shape[0], mean)
+    if same is not None:
+        f_star = torch.where(same, mean, f_star)
+        cov_f = torch.where(same, state.Sigma, cov_f)
+    return f_star, cov_f
+
+
+def observe_latent(state: ClusterState, x_post, x_basis,
+                   use_smoothed: bool = True):
+    """The LATENT state distribution at arbitrary inputs
+    (GPI.pred_latent_dist, GPI.py:505-562), with the reference's fixed
+    1e-4 kernel jitter; on the shared grid the stored latent moments."""
+    f = state.f_sm_last if use_smoothed else state.f_last
+    P = state.P_sm_last if use_smoothed else state.P_last
+    x_post, x_basis = _grid(x_post, f), _grid(x_basis, f)
+    same = _same_grid(x_post, x_basis)
+    K_XX = gram(state.theta, x_basis, x_basis)
+    K_XXs = gram(state.theta, x_basis, x_post)
+    K_XsX = _t(K_XXs)
+    K_XsXs = gram(state.theta, x_post, x_post)
+    L = linalg.chol(K_XX + 1e-4 * _eye(K_XX.shape[0], f))
+    f_star = K_XsX @ linalg.cho_solve(L, f)
+    sol_K = linalg.cho_solve(L, K_XXs)
+    term_data = K_XsX @ sol_K
+    term_prior = K_XsX @ linalg.cho_solve(L, P @ sol_K)
+    cov_f = K_XsXs - term_data + term_prior
+    if same is not None:
+        f_star = torch.where(same, f, f_star)
+        cov_f = torch.where(same, P, cov_f)
+    return f_star, cov_f
+
+
+def _observation_moments(st: ClusterState):
+    """y ~ N(C f_sm, sym(C P_sm C' + Sigma))."""
+    mu = (st.C @ st.f_sm_last)[..., 0]
+    return mu, linalg.sym(st.C @ st.P_sm_last @ _t(st.C) + st.Sigma)
+
+
+def _sample_from_normals(state: ClusterState, z: torch.Tensor
+                         ) -> torch.Tensor:
+    """mean + z L' for standard normals z (n, T), L = chol_spd(cov)."""
+    mean, cov = _observation_moments(state)
+    return mean[None, :] + z @ _t(linalg.chol_spd(cov))
+
+
+def sample_observations(state: ClusterState, generator: torch.Generator,
+                        n_samples: int = 1) -> torch.Tensor:
+    """Draw beats from the cluster's current observation distribution
+    y ~ N(C f_sm, C P_sm C' + Sigma) (GPI.sample_y, GPI.py:564-608).
+    ``generator`` lives on the state's device."""
+    T = state.f_sm_last.shape[-2]
+    z = torch.randn((n_samples, T), generator=generator,
+                    dtype=state.f_sm_last.dtype,
+                    device=state.f_sm_last.device)
+    return _sample_from_normals(state, z)
+
+
+def kl_divergence(state_a: ClusterState, state_b: ClusterState
+                  ) -> torch.Tensor:
+    """Symmetric KL between two clusters' observation distributions
+    (GPI.KL_divergence, GPI.py:1058-1094)."""
+    mu1, c1 = _observation_moments(state_a)
+    mu2, c2 = _observation_moments(state_b)
+    ic1 = linalg.inv_spd(c1)
+    ic2 = linalg.inv_spd(c2)
+    tr = (torch.trace(ic2 @ c1 + ic1 @ c2) - 2 * c1.shape[0]) / 4.0
+    d = mu1 - mu2
+    return torch.dot(d, (ic1 + ic2) @ d) / 4.0 + tr

@@ -21,29 +21,39 @@ reference; every heavy step runs on the model's device:
 kernels' plain versions.
 This package runs the offline sweep ``include_batch``, the online steps
 ``include_sample`` and ``include_sample_fast`` (each with or without
-the warp, Bayesian or ML-EM), the post-hoc ``compute_warp_actual_state``
-and (models/stream_online.py) the fused stream engine (warp off,
-Bayesian); the rest of the reference's surface raises
-``NotImplementedError`` naming its ROADMAP item.
+the warp, Bayesian or ML-EM), the post-hoc ``compute_warp_actual_state``,
+the supervised path (``reload_model_from_labels``, ``cluster_new_batch``)
+and the npz checkpoints (``save_swgp``, ``load_swgp``, the format of
+hdpgpc_tpu), with exact or inducing-point (SGPR / SVGP) kernel fits;
+models/stream_online.py holds the fused stream engine (warp off,
+Bayesian) and models/streaming.py the frozen-cluster classifier.
+hdpgpc_tpu's legacy round-1 pickle checkpoints are not read (they hold
+JAX arrays and hdpgpc_tpu classes).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import time
+import zipfile
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from hdpgpc_torch import convert
 from hdpgpc_torch.config import GPConfig, HDPConfig, ModelConfig, WarpConfig
 from hdpgpc_torch.data.priors import redefine_default_priors
 from hdpgpc_torch.device import DEFAULT_DEVICE, resolve_device
 from hdpgpc_torch.models import gplds, ml_em
 from hdpgpc_torch.models.gplds import ClusterState
-from hdpgpc_torch.models.kernel_fit import fit_kernel, fit_kernel_batch
+from hdpgpc_torch.models.kernel_fit import (fit_kernel, fit_kernel_batch,
+                                            fit_kernel_sgpr, fit_kernel_svgp)
+from hdpgpc_torch.models.streaming import emission_scores
 from hdpgpc_torch.ops import hmm as hmm_ops
+from hdpgpc_torch.ops import linalg
 from hdpgpc_torch.ops import stick_breaking as sb
 from hdpgpc_torch.ops.kernels import KernelParams
 from hdpgpc_torch.utils.metrics import MetricsLog, SweepMetrics
@@ -54,11 +64,6 @@ from hdpgpc_torch.warp.monotone import (build_batch_warp, make_warp_prior,
 # (x_basis, seed beat, bounds, fit config): the Adam fit is a pure
 # deterministic function of these
 _GLOBAL_KERNEL_FITS: Dict[tuple, KernelParams] = {}
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to hdpgpc_torch yet "
-                              f"(ROADMAP {item})")
 
 
 class Cluster:
@@ -156,8 +161,6 @@ class HDPGPC:
                 reestimate_initial_params=reestimate_initial_params,
                 compute_dtype=compute_dtype, hdp=HDPConfig.preset(hdp_hyp),
                 gp=gp_cfg, warp=warp_cfg, verbose=verbose)
-        if config.gp.inducing_points or config.gp.variational_inducing:
-            _not_ported("inducing-point kernel fits (SGPR/SVGP)", "A11")
         self.device = resolve_device(device)
         self.cfg = config
         # pre-f32-cap config, for the on_fragile='fallback_f64' re-run
@@ -283,12 +286,37 @@ class HDPGPC:
                 free_deg=float(self.cfg.gp.free_deg_mniw))
         return self._refits[key]
 
+    def _fit_theta(self, y: np.ndarray) -> KernelParams:
+        """Kernel hyperparameter fit on one beat: the exact-GP Adam fit
+        (GPI.fit_torch exact path) or, with cfg.gp.inducing_points, the
+        SGPR (or, with variational_inducing, SVGP) fit with learnable
+        inducing locations and no lengthscale pin (GPI.py:641-770)."""
+        g = self.cfg.gp
+        if g.variational_inducing and not g.inducing_points:
+            raise ValueError(
+                "variational_inducing=True requires inducing_points=True "
+                "(the SVGP fit is the variational member of the "
+                "inducing-point family, GPI_models_pytorch.py:37-46)")
+        if not g.inducing_points:
+            return fit_kernel(self.x_basis, y, self._def_bound_sigma,
+                              **self._fit_kw())
+        fit_ind = fit_kernel_svgp if g.variational_inducing \
+            else fit_kernel_sgpr
+        theta, _Z = fit_ind(self.x_basis, y, self._def_bound_sigma,
+                            max_iters=g.kernel_fit_iters_inducing,
+                            lr=g.kernel_fit_lr, dtype=self.dtype,
+                            device=self.device)
+        return theta
+
     def _fit_key(self, y_seed: np.ndarray) -> tuple:
+        """Content-addressed memo key of a kernel fit: the fit is a pure
+        function of (x_basis, seed beat, bounds, fit config)."""
         g = self.cfg.gp
         return (self._xb_digest, self._digest(np.asarray(y_seed)),
                 self._def_bound_sigma, g.kernel_fit_pin_lengthscale,
-                g.kernel_fit_iters, g.kernel_fit_lr, str(self.dtype),
-                str(self.device))
+                g.kernel_fit_iters, g.kernel_fit_iters_inducing,
+                g.kernel_fit_lr, str(self.dtype), g.inducing_points,
+                g.variational_inducing, str(self.device))
 
     def _fit_kw(self) -> dict:
         g = self.cfg.gp
@@ -298,7 +326,10 @@ class HDPGPC:
 
     def _prefetch_kernel_fits(self, jobs) -> None:
         """Run every kernel fit a refit batch needs as ONE batched Adam
-        (fit_kernel_batch); results equal the solo fits."""
+        (fit_kernel_batch); results equal the solo fits. The inducing
+        fits stay solo."""
+        if self.cfg.gp.inducing_points:
+            return
         need = {}
         for (cl, ld, Y, rc) in jobs:
             if cl.fitted:
@@ -332,8 +363,7 @@ class HDPGPC:
         key = self._fit_key(Y[seed])
         theta = self._kernel_fit_cache.get(key)
         if theta is None:
-            theta = fit_kernel(self.x_basis, Y[seed], self._def_bound_sigma,
-                               **self._fit_kw())
+            theta = self._fit_theta(Y[seed])
             self._kernel_fit_cache[key] = theta
             if self.verbose:
                 print(f"---Kernel estimated--- lead {ld} seed {seed}: "
@@ -554,6 +584,44 @@ class HDPGPC:
             self.snr_norm = self.snr_norm[:, final]
         self.cfg = dataclasses.replace(self.cfg, n_outputs=keep)
         return y_trains[:, :, final]
+
+    def compute_joint_xy_q(self, y_trains: np.ndarray,
+                           outputs: Tuple[int, int] = (0, 1),
+                           rho_xy: Optional[np.ndarray] = None,
+                           jitter: float = 1e-6) -> np.ndarray:
+        """Joint two-lead Gaussian emission score with a per-cluster
+        cross-lead correlation (GPI_HDP.compute_joint_xy_q,
+        GPI_HDP.py:758-803), in float64. The reference reads a
+        ``self.rho_xy`` that nothing initialises; here the correlations
+        are an argument (default: uncorrelated). The joint (2T, 2T)
+        covariance does not depend on the beat, so it is factored once
+        per cluster and the N residuals are solved together."""
+        ld_x, ld_y = outputs
+        N, T, _ = y_trains.shape
+        M = len(self.clusters[ld_x])
+        rho = np.tanh(np.zeros(M) if rho_xy is None
+                      else np.asarray(rho_xy, np.float64))
+        q = np.zeros((N, M))
+        for m in range(M):
+            means, covs = [], []
+            for ld in (ld_x, ld_y):
+                st = self.clusters[ld][m].state
+                means.append((st.C @ st.f_last).cpu().numpy().reshape(-1))
+                covs.append(st.Sigma.cpu().numpy().astype(np.float64))
+            sx = np.sqrt(np.clip(np.diag(covs[0]), jitter, None))
+            sy = np.sqrt(np.clip(np.diag(covs[1]), jitter, None))
+            cross = rho[m] * np.diag(sx * sy)
+            Sig = np.block([[covs[0], cross], [cross.T, covs[1]]]) \
+                + jitter * np.eye(2 * T)
+            r = np.concatenate([
+                y_trains[:, :, ld_x] - means[0][None],
+                y_trains[:, :, ld_y] - means[1][None]], axis=1)  # (N, 2T)
+            L_ = linalg.chol(self._f64(Sig))
+            alpha = linalg.cho_solve(L_, self._f64(r.T)).cpu().numpy()
+            logdet = float(2.0 * torch.sum(torch.log(torch.diagonal(L_))))
+            q[:, m] = -0.5 * (np.einsum("ij,ji->i", r, alpha) + logdet
+                              + 2 * T * np.log(2.0 * np.pi))
+        return q
 
     # ------------------------------------------------------------------
     # HMM message passing wrappers
@@ -1017,6 +1085,13 @@ class HDPGPC:
     def selected_gpmodels(self) -> List[int]:
         return [i for i, cl in enumerate(self.clusters[0])
                 if cl.members.size > 0]
+
+    def compute_Pi(self) -> np.ndarray:
+        """Posterior-mean transition matrix (GPI_HDP.compute_Pi,
+        GPI_HDP.py:424-429)."""
+        from scipy.special import digamma
+        d = digamma(self.glob.trans_theta)
+        return np.exp(d - np.log(np.sum(np.exp(d), axis=1))[:, None])
 
     # ------------------------------------------------------------------
     # Offline batch VI (GPI_HDP.include_batch, GPI_HDP.py:805-947)
@@ -1956,8 +2031,7 @@ class HDPGPC:
         key = self._fit_key(y)
         theta = self._kernel_fit_cache.get(key)
         if theta is None:
-            theta = fit_kernel(self.x_basis, y, self._def_bound_sigma,
-                               **self._fit_kw())
+            theta = self._fit_theta(y)
             self._kernel_fit_cache[key] = theta
         st = gplds.apply_kernel_fit(cl.state, self._xb_dev, theta)
         return Cluster(st, True, cl.members)
@@ -2515,18 +2589,315 @@ class HDPGPC:
         return model
 
     # ------------------------------------------------------------------
-    # The reference's surface not ported yet
+    # Classification / continued learning (GPI_HDP.py:2975-3151)
     # ------------------------------------------------------------------
 
-    def cluster_new_batch(self, *args, **kwargs):
-        _not_ported("cluster_new_batch (frozen-cluster classifier)", "A13")
+    def _score_clusters(self, ld: int, Y: np.ndarray) -> np.ndarray:
+        """q (N, M): every beat of Y (N, T) against every cluster of lead
+        ``ld`` (mean C f_last, covariance Sigma), in one kernel-B
+        launch (models/streaming.emission_scores)."""
+        st = gplds.stack_states([cl.state for cl in self.clusters[ld]])
+        return emission_scores(
+            torch.as_tensor(Y, dtype=self.dtype, device=self.device),
+            (st.C @ st.f_last)[..., 0], st.Sigma).cpu().numpy()
 
-    def reload_model_from_labels(self, *args, **kwargs):
-        _not_ported("reload_model_from_labels", "A13")
+    def _refit_reordered(self, ld: int, Y: np.ndarray, resp: np.ndarray,
+                         reorder: np.ndarray):
+        """Refit column m of ``resp`` from cluster ``reorder[m]`` of lead
+        ``ld``, for every m, in batched calls. The reference does this in
+        one loop that overwrites ``clusters[ld][m]`` as it goes, so a
+        job whose source index is below its own reads the REFITTED
+        cluster (hdpgpc.py:3250-3258); such a job waits for the job that
+        wrote its source. Returns the (q, q_lat, snr, Cluster) per m."""
+        M = len(reorder)
+        src = self.clusters[ld]
+        out: list = [None] * M
+        todo = list(range(M))
+        while todo:
+            ready = [m for m in todo
+                     if reorder[m] >= m or out[reorder[m]] is not None]
+            jobs = [(src[reorder[m]] if reorder[m] >= m
+                     else out[reorder[m]][3], ld, Y, resp[:, m])
+                    for m in ready]
+            for m, r in zip(ready, self._full_refit_batch(jobs)):
+                out[m] = r
+            todo = [m for m in todo if out[m] is None]
+        return out
 
-    def save_swgp(self, *args, **kwargs):
-        _not_ported("save_swgp (checkpoints)", "A13")
+    def cluster_new_batch(self, x_trains, y_trains, learning: bool = False,
+                          it_limit: Optional[int] = None,
+                          with_warp: bool = False):
+        """Score new beats against the trained clusters and return their
+        labels; with ``learning`` absorb them and go on training
+        (GPI_HDP.cluster_new_batch): the histories are concatenated,
+        the clusters reordered by size and refit, and the offline sweep
+        re-entered (at most ``it_limit`` sweeps)."""
+        y = np.asarray(y_trains, np.float64)
+        if self._y_scale != 1.0:
+            y = y / self._y_scale
+        if y.ndim == 2:
+            y = y[:, :, None]
+        N, T, L = y.shape
+        M = self.M
+        q = np.zeros((N, M, L))
+        snr = np.zeros((N, M, L))
+        for ld in range(L):
+            q[:, :, ld] = self._score_clusters(ld, y[:, :, ld])
+            for m in range(M):
+                f = self.clusters[ld][m].state.f_sm_last[:, 0].cpu().numpy()
+                num = np.sum(f**2)
+                den = np.sum((y[:, :, ld] - f[None]) ** 2, axis=1)
+                snr[:, m, ld] = 10.0 * (np.log10(max(num, 1e-300))
+                                        - np.log10(np.maximum(den, 1e-300)))
+        startPi, transPi = self._online_pis(M)
+        q_w = self.weight_mean(q, snr)
+        resp, respPair = self._fb_hard(q_w - q_w.max(axis=1, keepdims=True),
+                                       startPi, transPi)
+        if not learning:
+            return np.argmax(resp, axis=1)
 
-    @classmethod
-    def load_swgp(cls, *args, **kwargs):
-        _not_ported("load_swgp (checkpoints)", "A13")
+        # continued learning: concatenate histories and re-enter the
+        # offline sweep (GPI_HDP.py:3002-3151)
+        y_all = np.concatenate([self._y_all, y], axis=0) \
+            if self._y_all is not None and self._y_all.shape[0] else y
+        self.T_count = y_all.shape[0]
+        self._y_all = y_all
+        resp_full = np.concatenate([self.resp_last, resp], axis=0) \
+            if self.resp_last is not None else resp
+        respPair_full = np.concatenate([self.respPair_last, respPair],
+                                       axis=0) \
+            if self.respPair_last is not None else respPair
+        self.snr_norm = np.concatenate(
+            [self.snr_norm, self.normalize_snr(snr)], axis=0) \
+            if self.snr_norm.shape[0] else self.normalize_snr(snr)
+        reorder = np.argsort(-resp_full.sum(axis=0), kind="stable")
+        resp_full = resp_full[:, reorder]
+
+        Nf = y_all.shape[0]
+        q = np.zeros((Nf, M, L))
+        q_lat = np.zeros((Nf, M, L))
+        snr_f = np.zeros((Nf, M, L))
+        x_full = np.tile(self.x_basis, (Nf, 1))
+        for ld in range(L):
+            res = self._refit_reordered(ld, y_all[:, :, ld], resp_full,
+                                        reorder)
+            for m, (q_col, ql_col, s_col, cl2) in enumerate(res):
+                q[:, m, ld] = q_col
+                q_lat[:, m, ld] = ql_col
+                snr_f[:, m, ld] = s_col
+                self.clusters[ld][m] = cl2
+        q_w = self.weight_mean(q, snr_f)
+        resp, respPair = self._fb_hard(q_w - q_w.max(axis=1, keepdims=True),
+                                       startPi, transPi)
+        iteration = 0
+        reallocate = False
+        y_w = np.broadcast_to(y_all[..., None], (Nf, T, L, M))
+        while True:
+            resp, respPair, end = self._refill(resp, respPair)
+            M = self.M
+            if end:
+                break
+            (resp, respPair, q, q_lat, snr_f, y_w,
+             reallocate) = self._vlt_batch(M, x_full, y_all, y_w, resp,
+                                           respPair, q, q_lat, snr_f,
+                                           reallocate)
+            if resp.shape[1] > M:
+                self.M = M + 1
+                M = self.M
+            elif resp.shape[1] < M:
+                # Emergency group removal shrank the bank mid-sweep
+                # (GPI_HDP.py:1451-1460 trims gpmodels but never resyncs
+                # self.M — a latent reference crash in _calcThetaFull on
+                # the next global update). Resync to the live count.
+                self.M = resp.shape[1]
+                M = self.M
+            self._hdp_global_update(resp, respPair, M, n_iters=2)
+            if self.T_count <= 1:
+                break
+            elbo_ = float(hmm_ops.entropy_terms(
+                torch.as_tensor(resp, dtype=self.dtype, device=self.device),
+                torch.as_tensor(respPair, dtype=self.dtype,
+                                device=self.device)))
+            q_obs, elbo_lin = self.compute_q_elbo(
+                resp, respPair, self.weight_mean(q), self.weight_mean(q_lat),
+                self.clusters, self.M, snr="saved", post=False)
+            elbo_ = elbo_ + elbo_lin + q_obs
+            iteration += 1
+            self.train_elbo.append(elbo_)
+            self.resp_assigned.append(np.argmax(resp, axis=1))
+            self.q_last, self.q_lat_last = q, q_lat
+            self.resp_last, self.respPair_last = resp, respPair
+            if it_limit is not None and iteration >= it_limit:
+                break
+            repeated = (len(self.resp_assigned) > 1
+                        and self.resp_assigned[-2].shape[0]
+                        == self.resp_assigned[-1].shape[0]
+                        and np.all(self.resp_assigned[-2]
+                                   == self.resp_assigned[-1]))
+            if (np.flatnonzero(resp.sum(axis=0) == 0.0).shape[0] > 1
+                    or repeated):
+                break
+        return np.argmax(resp, axis=1)
+
+    def reload_model_from_labels(self, x_trains, y_trains, labels, M: int,
+                                 with_warp: bool = False):
+        """Supervised (re)initialisation: one cluster per label, full
+        refits, HDP update, representative election
+        (GPI_HDP.reload_model_from_labels, GPI_HDP.py:3952-4035)."""
+        y = np.asarray(y_trains, np.float64)
+        if y.ndim == 2:
+            y = y[:, :, None]
+        N, T, L = y.shape
+        if L != self.n_outputs:
+            raise ValueError(f"reload_model_from_labels: {L} leads, the "
+                             f"model has {self.n_outputs}")
+        labels = np.asarray(labels, np.int64)
+        if M != self.M:
+            for ld in range(L):
+                base = self.clusters[ld][0]
+                self.clusters[ld] = [base.clone() for _ in range(M)]
+        self.M = M
+        self.T_count = N
+        self._y_all = y
+        self.snr_norm = np.ones((N, L))
+
+        resp = np.zeros((N, M))
+        resp[np.arange(N), labels] = 1.0
+        respPair = np.zeros((N, M, M))
+        respPair[np.arange(1, N), labels[:-1], labels[1:]] = 1.0
+        q = np.zeros((N, M, L))
+        q_lat = np.zeros((N, M, L))
+        snr = np.zeros((N, M, L))
+        # every (lead, cluster) refit from the lead's first cluster, in
+        # batched calls
+        jobs = [(self.clusters[ld][0].clone(), ld, y[:, :, ld], resp[:, m])
+                for ld in range(L) for m in range(M)]
+        for j, (q_col, ql_col, s_col, cl) in enumerate(
+                self._full_refit_batch(jobs)):
+            ld, m = divmod(j, M)
+            q[:, m, ld] = q_col
+            q_lat[:, m, ld] = ql_col
+            snr[:, m, ld] = s_col
+            self.clusters[ld][m] = cl
+
+        resp, respPair, _end = self._refill(resp, respPair)
+        self._hdp_global_update(resp, respPair, M, n_iters=2)
+        self.resp_assigned.append(np.argmax(resp, axis=1))
+        self.q_last, self.q_lat_last = q, q_lat
+        self.resp_last, self.respPair_last = resp, respPair
+        self.snr_norm = self.normalize_snr(snr)
+        q_w = self.weight_mean(q, snr)
+        self.f_ind_old = np.zeros(M, np.int64)
+        for m in range(M):
+            idx = self.clusters[0][m].members
+            if idx.size:
+                self.f_ind_old[m] = idx[int(np.argmax(q_w[idx, m]))]
+        elbo_ = float(hmm_ops.entropy_terms(self._f64(resp),
+                                            self._f64(respPair)))
+        q_obs, elbo_lin = self.compute_q_elbo(
+            resp, respPair, self.weight_mean(q), self.weight_mean(q_lat),
+            self.clusters, self.M, snr="saved", post=False)
+        elbo_ = elbo_ + elbo_lin + q_obs
+        print(f"\n-------ELBO:{elbo_}-------")
+        self.elbo_last = elbo_
+        self.train_elbo.append(elbo_)
+        return self
+
+    # ------------------------------------------------------------------
+    # Checkpoints (save_swgp, GPI_HDP.py:3946-3950): hdpgpc_tpu's npz
+    # format 2, readable and writable by both packages
+    # ------------------------------------------------------------------
+
+    _CACHE_KEYS = ("q_last", "q_lat_last", "resp_last", "respPair_last")
+
+    def save_swgp(self, path: str) -> None:
+        """Checkpoint the model as an npz archive of raw arrays and a JSON
+        metadata blob (format 2 of hdpgpc_tpu): no pickled objects, so
+        loading a checkpoint cannot execute code. Cluster states are
+        stored per leaf as ``st_{lead}_{cluster}_{i}`` in
+        ``jax.tree.leaves`` order."""
+        arrays: Dict[str, np.ndarray] = {
+            "x_basis": self.x_basis,
+            "snr_norm": np.asarray(self.snr_norm),
+            "f_ind_old": np.asarray(self.f_ind_old),
+            "glob_rho": np.asarray(self.glob.rho),
+            "glob_omega": np.asarray(self.glob.omega),
+            "glob_trans_theta": np.asarray(self.glob.trans_theta),
+            "glob_start_theta": np.asarray(self.glob.start_theta),
+        }
+        fitted = []
+        for ld, row in enumerate(self.clusters):
+            fitted.append([bool(cl.fitted) for cl in row])
+            for m, cl in enumerate(row):
+                for i, leaf in enumerate(convert.tree_leaves(cl.state)):
+                    arrays[f"st_{ld}_{m}_{i}"] = leaf.detach().cpu().numpy()
+                arrays[f"members_{ld}_{m}"] = cl.members
+        for k in self._CACHE_KEYS:
+            v = getattr(self, k)
+            if v is not None:
+                arrays[f"cache_{k}"] = np.asarray(v)
+        if self.resp_assigned:
+            arrays["resp_assigned_last"] = np.asarray(self.resp_assigned[-1])
+        meta = {
+            "format": 2,
+            "y_scale": float(self._y_scale),
+            "cfg": self.cfg.to_json(),
+            "M": int(self.M),
+            "T_count": int(self.T_count),
+            "train_elbo": [float(e) for e in self.train_elbo],
+            "elbo_last": (None if self.elbo_last is None
+                          else float(self.elbo_last)),
+            "fitted": fitted,
+            "glob_scalars": [float(self.glob.gamma),
+                             float(self.glob.trans_alpha),
+                             float(self.glob.start_alpha),
+                             float(self.glob.kappa)],
+        }
+        with open(path, "wb") as f:
+            np.savez(f, __meta__=np.frombuffer(
+                json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+
+    @staticmethod
+    def load_swgp(path: str, device=DEFAULT_DEVICE) -> "HDPGPC":
+        """Load an npz checkpoint (format 2, written by either package)
+        onto ``device``; each state leaf takes the model's dtype for it.
+        Loading executes no code. hdpgpc_tpu's legacy round-1 pickle
+        checkpoints hold JAX arrays and hdpgpc_tpu classes, so they
+        raise here."""
+        dev = resolve_device(device)
+        if not zipfile.is_zipfile(path):
+            raise ValueError(
+                f"{path} is not an npz checkpoint (format 2). A legacy "
+                "round-1 pickle checkpoint of hdpgpc_tpu holds JAX arrays "
+                "and hdpgpc_tpu classes and is not read by hdpgpc_torch: "
+                "load it with hdpgpc_tpu's HDPGPC.load_swgp and save it "
+                "again, which writes format 2.")
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            model = HDPGPC(z["x_basis"],
+                           config=ModelConfig.from_json(meta["cfg"]),
+                           device=dev)
+            model.M = meta["M"]
+            model.glob = sb.HDPGlobals(
+                z["glob_rho"], z["glob_omega"], z["glob_trans_theta"],
+                z["glob_start_theta"], *meta["glob_scalars"])
+            proto = model._new_cluster().state
+            n_leaves = len(convert.tree_leaves(proto))
+            model.clusters = [
+                [Cluster(convert.tree_unflatten(
+                    proto, [z[f"st_{ld}_{m}_{i}"] for i in range(n_leaves)],
+                    dev), fitted, z[f"members_{ld}_{m}"])
+                 for m, fitted in enumerate(fit_row)]
+                for ld, fit_row in enumerate(meta["fitted"])]
+            model.snr_norm = z["snr_norm"]
+            model.f_ind_old = z["f_ind_old"]
+            model.T_count = meta["T_count"]
+            model._y_scale = float(meta.get("y_scale", 1.0))
+            model.train_elbo = list(meta["train_elbo"])
+            model.elbo_last = meta["elbo_last"]
+            if "resp_assigned_last" in z:
+                model.resp_assigned = [z["resp_assigned_last"]]
+            for k in HDPGPC._CACHE_KEYS:
+                if f"cache_{k}" in z:
+                    setattr(model, k, z[f"cache_{k}"])
+        return model

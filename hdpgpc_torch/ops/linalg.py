@@ -67,12 +67,18 @@ def diag_mean(M: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d, min=torch.finfo(M.dtype).eps)
 
 
+def spd_jitter(M: torch.Tensor, jitter_scale: float = 1e-8) -> torch.Tensor:
+    """sym(M) plus ``jitter_scale * mean|diag|`` on the diagonal: the
+    matrix ``chol_spd`` factors, for a caller that solves it with
+    ops/spd_solve.spd_solve (which adds no jitter)."""
+    M = sym(M)
+    return M + (jitter_scale * diag_mean(M))[..., None, None] * eye_like(M)
+
+
 def chol_spd(M: torch.Tensor, jitter_scale: float = 1e-8) -> torch.Tensor:
     """Cholesky of an SPD matrix with relative diagonal jitter
     (GPI_model._chol_spd, GPI_model.py:83-87)."""
-    M = sym(M)
-    return chol(M + (jitter_scale * diag_mean(M))[..., None, None]
-                * eye_like(M))
+    return chol(spd_jitter(M, jitter_scale))
 
 
 def spd_solve(M: torch.Tensor, B: torch.Tensor,

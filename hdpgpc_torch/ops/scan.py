@@ -42,8 +42,11 @@ def associative_scan(fn: Callable, elems, reverse: bool = False):
         n = xs[0].shape[0]
         if n < 2:
             return xs
-        reduced = combine([x[0:n - 1:2] for x in xs], [x[1::2] for x in xs])
-        odd = _scan(reduced)
+        # the reduced level is not bound here, so it is freed as soon as
+        # the recursion returns (the classifier's scan holds (K, B, T, T)
+        # elements)
+        odd = _scan(combine([x[0:n - 1:2] for x in xs],
+                            [x[1::2] for x in xs]))
         if n % 2 == 0:
             even = combine([o[:-1] for o in odd], [x[2::2] for x in xs])
         else:

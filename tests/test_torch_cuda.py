@@ -231,3 +231,46 @@ def test_ml_refit_on_card_matches_cpu(cuda):
     for x, y in zip(a[:4], b[:4]):
         assert np.max(np.abs(x - y)) <= 1e-9 * np.max(np.abs(y))
     assert a[4] > 0 and b[4] == 0
+
+
+@pytest.mark.parametrize("R", [256, 2 * 90 + 256, 1929, 2 * 90 + 1929])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-3)])
+def test_spd_solve_kernel_at_classifier_shapes(cuda, R, dtype, tol):
+    """Kernel B at the frozen-cluster classifier's two calls: K = 64
+    systems of T = 90 against a chunk's beats (R = chunk) and against
+    [(Q H')', H, the beats] (R = 2T + chunk), chunks of 256 and of 1929
+    (what an 80 GB card gives K = 64 in float32)."""
+    spd, _ = _spd(64, 90, R)
+    rhs = np.random.default_rng(R).standard_normal((64, 90, R)) * 12.0
+    a = torch.tensor(spd, dtype=dtype, device=cuda)
+    b = torch.tensor(rhs, dtype=dtype, device=cuda)
+    X = spd_solve(a, b)
+    torch.cuda.synchronize()
+    Xp = spd_solve_plain(a, b)
+    err = ((X - Xp).abs() / (Xp.abs() + 1e-3)).max().item()
+    assert err < tol
+
+
+def test_stream_classifier_on_card_matches_cpu(cuda):
+    """The classifier's chunk step on the card (two kernel-B launches a
+    chunk: the scores and the filter elements' shared solve) against the
+    CPU in float64: identical labels, states to 1e-9."""
+    from hdpgpc_torch.data.loader import synthetic_beats
+    from hdpgpc_torch.models import streaming
+    y, z = synthetic_beats(600, T=24, n_clusters=3, noise=0.05, seed=2)
+    tmpl = np.stack([y[:100][z[:100] == k][:, :, 0].mean(0)
+                     for k in range(3)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = streaming.init_stream_state(torch.tensor(tmpl, device=dev),
+                                         0.001, 0.05)
+        before = spd_solve.launches
+        out[dev] = streaming.stream_classify(st, y[100:, :, 0], chunk=128)
+        if dev == "cuda":
+            assert spd_solve.launches - before == 2 * 4
+    (a, la), (b, lb) = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(la, lb)
+    for f in ("f", "P", "fmsg"):
+        x, r = getattr(a, f).cpu(), getattr(b, f)
+        assert ((x - r).abs().max() / r.abs().max()).item() < 1e-9

@@ -24,7 +24,8 @@ def test_port_imports_no_jax():
     code = ("import sys, hdpgpc_torch, hdpgpc_torch.models.hdpgpc, "
             "hdpgpc_torch.convert, hdpgpc_torch.models.stream_online, "
             "hdpgpc_torch.ops.sb_device, hdpgpc_torch.warp.monotone, "
-            "hdpgpc_torch.models.ml_em; "
+            "hdpgpc_torch.models.ml_em, hdpgpc_torch.models.streaming, "
+            "hdpgpc_torch.models.kernel_fit, hdpgpc_torch.ops.kalman; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'hdpgpc_tpu'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
