@@ -18,6 +18,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
    graph (``device_ms``), the plain version's time, one
    ``torch.linalg.solve`` call's (kernel B's ``library_ms``) and the
    bound from the shapes (``hdpgpc_torch/utils/kernel_timing.py``);
+   kernel A on (T, D) grids at (90, 3) and (256, 2), both dtypes, the
+   first timed;
 4. slice: ``HDPGPC.include_batch`` on 2272 synthetic beats of T = 90
    (record 100's shape), float32, estimation_limit=1000, on the card,
    with launch counts of both kernels from that run alone;
@@ -73,7 +75,25 @@ Phases (each prints a line; any failure raises and exits non-zero):
     in float64, card against CPU (at capped iterations, as the CPU tests
     hold them against hdpgpc_tpu), one full SGPR fit timed on the card;
     include_batch with inducing_points=True on 200 beats in float64 for
-    two sweeps, card against CPU: identical partitions.
+    two sweeps, card against CPU: identical partitions;
+16. records: the multi-record VI step (parallel/records.py) at BASELINE
+    config 4's shape on one card: 48 synthetic records of 2272 beats
+    (record r from seed r), K = 4, T = 90, float32, the slice's
+    estimation limit, hard responsibilities from the generating labels,
+    hdp_update: one untimed step, two timed: s/step, beats/s, the record
+    group and the groups a step, kernel B's launches a step and their
+    shape, kernel A's launches, peak memory, the idle share of a
+    profiled one-group step over the first 128 beats; the ELBO finite
+    and equal to the sum of the per-record ELBOs; kernel B timed at a
+    group's (4 G K, 90, 90) and all records' (4 R K, 90, 90);
+17. records_parity: 4 records of 200 beats, K = 3, float64, hdp_update
+    off and on, card against CPU (identical resp and respPair, q, q_lat,
+    the ELBO and the states to 1e-9), the step through a one-rank NCCL
+    group against the step without one (identical), and entry() once;
+18. timing: the slice's configuration on its first 500 beats with
+    HDPGPC_TIMING=1 against the same sweep without: identical
+    partitions, the timer keys within hdpgpc_tpu's eight, the timings
+    summing to no more than the sweep's wall time; print_timings.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Logs of the sweeps go to
@@ -96,13 +116,16 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "parity", "online",
           "online_parity", "warp", "warp_parity", "online_warp", "ml_em",
-          "reload", "checkpoint", "stream", "inducing")
+          "reload", "checkpoint", "stream", "inducing", "records",
+          "records_parity", "timing")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 # kernel B: max |X - X64| / (|X64| + 1e-3) against a float64 truth
 SOLVE_BAR = {"float64": 1e-10, "float32": 2e-3}
 # kernel A: max |K - K_plain| / (|K_plain| + 1e-30 * c)
 GRAM_BAR = {"float64": 1e-13, "float32": 1e-6}
+# kernel A on (T, D) grids (T, D), the first timed
+GRAM_ND_SHAPES = ((90, 3), (256, 2))
 SLICE_EST_LIMIT = 1000
 # the offline parity prefix: the first 200 beats reach the same M = 4 as
 # 300 in about 2/3 of the time
@@ -152,6 +175,14 @@ STREAM_PARITY_K, STREAM_PARITY_BEATS, STREAM_PARITY_CHUNK = 8, 2048, 512
 # 5000 iterations, would take minutes of CPU on its half)
 INDUCING_FIT_ITERS = {"sgpr": 200, "svgp": 20}
 INDUCING_BEATS, INDUCING_SWEEPS, INDUCING_SWEEP_ITERS = 200, 2, 300
+# the multi-record step: BASELINE config 4's shape (48 records of record
+# 100's length, the slice's beats and estimation limit) on one card,
+# float32; its parity on 4 records of 200 beats in float64, card against
+# CPU
+RECORDS_R, RECORDS_N, RECORDS_K, RECORDS_TIMED = 48, 2272, 4, 2
+RECORDS_PROFILED = 128
+RECORDS_HDP = dict(trans_alpha=1.0, start_alpha=0.1, kappa=0.0)
+RECORDS_PARITY = dict(R=4, N=200, K=3)
 
 
 def _say(phase: str, msg: str) -> None:
@@ -305,7 +336,50 @@ def phase_kernels(torch, np):
                              rbf_gram_bound(T, T, dt))
                 _say("kernels", f"gram T=90 {dname}: " + _fmt_times(t))
                 rec[f"rbf_gram_{dname}"] = dict(max_abs_err=dkp, **t)
+            # a (T, 1) grid is the flat grid: the same launch, same bits
+            if not torch.equal(gram(p, x[:, None]), K):
+                raise AssertionError(f"rbf_gram {dname} T={T}: the (T, 1) "
+                                     "grid differs from the flat one")
+    # ---- kernel A on (T, D) grids: the distance summed over D ----
+    for (T, D) in GRAM_ND_SHAPES:
+        for dname, dt in (("float64", torch.float64),
+                          ("float32", torch.float32)):
+            x = torch.as_tensor(np.random.default_rng(T + D).uniform(
+                0.0, 6.0, (T, D)), dtype=dt, device=dev)
+            p = KernelParams(*[torch.tensor(v, dtype=dt, device=dev)
+                               for v in (300.0, 1.2, 0.05)])
+            K = gram(p, x)
+            Kp = rbf_gram_noise(x, x, *p)
+            torch.cuda.synchronize()
+            Kd, Kpd = K.double(), Kp.double()
+            rel = _gram_nd_rel(torch, x, Kd, Kpd, 300.0, 1.2)
+            dkp = float((Kd - Kpd).abs().max())
+            _say("kernels", f"gram (rbf_gram + noise) ({T}, {D}) grid "
+                 f"{dname}: max rel err vs plain over 1 + |exponent| "
+                 f"{rel:.3e} (bar {GRAM_BAR[dname]:.0e}), max abs "
+                 f"{dkp:.3e}")
+            if not rel <= GRAM_BAR[dname]:
+                raise AssertionError(f"rbf_gram {dname} ({T}, {D}) rel {rel}")
+            if T == 90:
+                t = _timings(lambda: gram(p, x),
+                             lambda: rbf_gram_noise(x, x, *p), None,
+                             rbf_gram_bound(T, T, dt, D))
+                _say("kernels", f"gram ({T}, {D}) grid {dname}: "
+                     + _fmt_times(t))
+                rec[f"rbf_gram_{T}x{D}_{dname}"] = dict(max_abs_err=dkp, **t)
     return rec
+
+
+def _gram_nd_rel(torch, x, K, Kp, c, ls):
+    """max |K - K_plain| / ((|K_plain| + 1e-30 c) (1 + |z|)), z the
+    exponent -0.5 |xi - xj|^2 / l^2. Over D > 1 the kernel and the plain
+    version may sum the squares in another order; one rounding of the
+    sum moves exp(z) by |z| roundings, so the bar is scaled by the
+    exponent's condition number."""
+    xd = x.double()
+    z = 0.5 * torch.cdist(xd, xd) ** 2 / ls ** 2
+    return float(((K - Kp).abs() / ((Kp.abs() + 1e-30 * c) * (1.0 + z)))
+                 .max())
 
 
 def _fmt_times(t):
@@ -870,17 +944,16 @@ def _idle_share(torch, fn, table=None):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    ka = prof.key_averages()
     dev_us = sum(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+                 for e in ka if e.device_type == DeviceType.CUDA)
     if table:
         os.makedirs(OUT_DIR, exist_ok=True)
         key = "self_device_time_total" if hasattr(
-            prof.key_averages()[0], "self_device_time_total") \
-            else "self_cuda_time_total"
+            ka[0], "self_device_time_total") else "self_cuda_time_total"
         with open(os.path.join(OUT_DIR, table), "w") as f:
-            f.write(prof.key_averages().table(sort_by=key, row_limit=30))
+            f.write(ka.table(sort_by=key, row_limit=30))
     if dev_us <= 0:
         return None, wall
     return 1.0 - dev_us * 1e-6 / wall, wall
@@ -1040,6 +1113,250 @@ def phase_inducing(torch, np):
     return card
 
 
+def _record_inputs(np, R, N, K, T=90):
+    """R synthetic records (record r from seed r, lead 0) with hard
+    responsibilities and transition pairs from the generating labels,
+    and the initial sticks (numpy)."""
+    from hdpgpc_torch.data.loader import synthetic_beats
+    from hdpgpc_torch.ops import stick_breaking as sb
+    Y = np.empty((R, N, T))
+    z = np.empty((R, N), np.int64)
+    for r in range(R):
+        y, z[r] = synthetic_beats(N, T=T, n_clusters=K, noise=0.05, seed=r)
+        Y[r] = y[:, :, 0]
+    respPair = np.zeros((R, N, K, K))
+    respPair[:, np.arange(1, N)[None, :], z[:, :-1], z[:, 1:]] = 1.0
+    return dict(Y=Y, resp=np.eye(K)[z], respPair=respPair,
+                rho=np.tile(sb.create_init_rho(K), (R, 1)),
+                start_log_pi=np.log(np.ones((R, K)) / K),
+                trans_log_pi=np.log(np.ones((R, K, K)) / K))
+
+
+def _record_elbos(torch, out):
+    """The per-record ELBOs of a step's outputs, in float64 on the host."""
+    from hdpgpc_torch.ops import hmm
+    q, q_lat, resp, respPair = (x.double().cpu() for x in out[:4])
+    return (torch.sum(q * resp, dim=(1, 2))
+            + torch.sum(q_lat * resp, dim=(1, 2))
+            + hmm.entropy_terms(resp, respPair))
+
+
+def phase_records(torch, np):
+    from hdpgpc_torch.models import streaming
+    from hdpgpc_torch.ops.kernels import fused_rbf_gram
+    from hdpgpc_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from hdpgpc_torch.parallel import records
+    from hdpgpc_torch.utils.kernel_timing import spd_solve_bound
+    R, N, K, T = RECORDS_R, RECORDS_N, RECORDS_K, 90
+    dev, dt = torch.device("cuda"), torch.float32
+    t0 = time.perf_counter()
+    d = _record_inputs(np, R, N, K)
+    Y, resp, rho, rp = (torch.as_tensor(d[k], dtype=dt, device=dev)
+                        for k in ("Y", "resp", "rho", "respPair"))
+    secs_data = time.perf_counter() - t0
+    free = streaming.free_memory(dev)
+    spd_solve.launches = 0
+    fused_rbf_gram.launches = 0
+    states = records.init_record_states(R, K, T, device=dev, dtype=dt)
+    gram_launches = fused_rbf_gram.launches
+    step = records.build_sharded_vi_step(T, K, est_limit=SLICE_EST_LIMIT,
+                                         hdp_update=True, device=dev,
+                                         **RECORDS_HDP)
+    out, secs0 = _timed(torch, lambda: step(Y, resp, states, rho, rp))
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    secs = []
+    for _ in range(RECORDS_TIMED):
+        out, s_ = _timed(torch, lambda: step(Y, resp, states, rho, rp))
+        secs.append(s_)
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    G, groups = step.last_group_size, step.last_groups
+    launches = {"spd_solve": spd_solve.launches,
+                "rbf_gram": fused_rbf_gram.launches}
+    per_step = launches["spd_solve"] / (RECORDS_TIMED + 1)
+    elbo = float(out[4])
+    per_rec = _record_elbos(torch, out)
+    rel = abs(float(per_rec.sum()) - elbo) / abs(elbo)
+    q_ok = bool(torch.isfinite(out[0]).all()) and out[0].shape == (R, N, K)
+    # the idle share of a one-group step over the records' first
+    # RECORDS_PROFILED beats: every sequential slot runs the same launch
+    # chain, and a whole step's trace (~10^6 events) takes minutes to
+    # parse
+    W = RECORDS_PROFILED
+    idle, wall = _idle_share(torch, lambda: step(
+        Y[:G, :W], resp[:G, :W], _records_head(states, G), rho[:G],
+        rp[:G, :W]), table="profile_records.txt")
+    idle_s = "not measured" if idle is None else f"{idle:.3f}"
+    s_step = sum(secs) / len(secs)
+    tt = peak / (min(G, R) * K * N * T * T * 4)
+    _say("records", f"R {R} records x N {N} beats x K {K}, T {T}, float32, "
+         f"est_limit {SLICE_EST_LIMIT}, hdp_update: data {secs_data:.2f} s; "
+         f"first step {secs0:.2f} s "
+         f"untimed; {RECORDS_TIMED} steps {[round(x, 3) for x in secs]} s: "
+         f"{s_step:.3f} s/step, {R * N / s_step:.1f} beats/s; group "
+         f"{G} records ({groups} groups a step, from "
+         f"{free / 2**30:.1f} GiB free, {records.REFIT_LIVE_TT} (T, T) a "
+         f"cluster and slot in {records.GROUP_MEMORY_FRACTION} of it); "
+         f"kernel B {per_step:.1f} launches a step (one a sequential "
+         f"forward slot and group) at ({4 * min(G, R) * K}, {T}, {T}); "
+         f"kernel A "
+         f"{gram_launches} launch(es) in init_record_states; peak "
+         f"{peak / 2**30:.3f} GiB above the inputs ({tt:.2f} (T, T) a "
+         f"cluster and slot of a group); ELBO {elbo:.6f}, sum of the "
+         f"per-record ELBOs rel diff {rel:.3e}, q finite {q_ok}; a "
+         f"one-group step over {W} beats profiled {wall:.3f} s, idle "
+         f"share {idle_s}")
+    if not (math.isfinite(elbo) and q_ok):
+        raise AssertionError("non-finite ELBO or q")
+    if rel > 1e-5:
+        raise AssertionError(f"ELBO {elbo} != sum of records ({rel})")
+    if launches["spd_solve"] <= 0 or gram_launches <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    # kernel B at the step's shapes: a group's (4 G K, 90, 90) and all
+    # R records' (4 R K, 90, 90)
+    rec = {}
+    for n in sorted({4 * min(G, R) * K, 4 * R * K}):
+        spd_h, rhs_h = _spd_inputs(np, n, T, n, 5.0)
+        spd = torch.as_tensor(spd_h, dtype=dt, device=dev)
+        rhs = torch.as_tensor(rhs_h, dtype=dt, device=dev)
+        X = spd_solve(spd, rhs)
+        Xp = spd_solve_plain(spd, rhs)
+        X64 = spd_solve_plain(spd.double(), rhs.double())
+        torch.cuda.synchronize()
+        err = float(((X.double() - X64).abs() / (X64.abs() + 1e-3)).max())
+        dkp = float((X - Xp).abs().max())
+        t = _timings(lambda: spd_solve(spd, rhs),
+                     lambda: spd_solve_plain(spd, rhs),
+                     lambda: torch.linalg.solve(spd, rhs),
+                     spd_solve_bound(n, T, T, dt))
+        _say("records", f"spd_solve ({n},{T},{T}) float32: kernel err "
+             f"{err:.3e} (bar {SOLVE_BAR['float32']:.0e}), max|kernel-"
+             f"plain| {dkp:.3e}; " + _fmt_times(t))
+        if not err < SOLVE_BAR["float32"]:
+            raise AssertionError(f"spd_solve n={n} err {err}")
+        rec[f"{n}x{T}x{T}"] = {"float32": dict(max_abs_err=dkp, **t)}
+    return launches, rec
+
+
+def _records_head(states, G):
+    """The first G records of (R, K)-batched states."""
+    from hdpgpc_torch.models import gplds
+    return gplds.tree_map(lambda x: x[:G], states)
+
+
+def _records_rel(torch, a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+
+def phase_records_parity(torch, np):
+    import torch.distributed as dist
+    from hdpgpc_torch import convert
+    from hdpgpc_torch.entry import _free_port, entry
+    from hdpgpc_torch.parallel import records
+    R, N, K = (RECORDS_PARITY[k] for k in ("R", "N", "K"))
+    T = 90
+    d = _record_inputs(np, R, N, K)
+    lc_all = {"spd_solve": 0, "rbf_gram": 0}
+    for hdp in (False, True):
+        a4, a5 = ("rho", "respPair") if hdp else ("start_log_pi",
+                                                  "trans_log_pi")
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            step = records.build_sharded_vi_step(
+                T, K, hdp_update=hdp, device=dev, **RECORDS_HDP)
+            (out, secs), lc = _counted(lambda: _timed(torch, lambda: step(
+                d["Y"], d["resp"], records.init_record_states(
+                    R, K, T, device=dev), d[a4], d[a5]),
+                sync=dev == "cuda"))
+            outs[dev] = out
+            if dev == "cuda":
+                lc_all = {k: lc_all[k] + v for k, v in lc.items()}
+            _say("records_parity", f"hdp_update {hdp} on {dev}: R {R}, N "
+                 f"{N}, K {K}, float64: {secs:.2f} s, launches {lc}")
+        a, b = outs["cuda"], outs["cpu"]
+        same = all(torch.equal(a[i].cpu(), b[i]) for i in (2, 3))
+        rel = max(_records_rel(torch, a[i], b[i]) for i in (0, 1, 4))
+        rel_st = max(_records_rel(torch, x, y) for x, y in zip(
+            convert.tree_leaves(a[5]), convert.tree_leaves(b[5]))
+            if x.is_floating_point())
+        _say("records_parity", f"hdp_update {hdp}: identical resp and "
+             f"respPair {same}; q, q_lat, ELBO max rel diff {rel:.3e}; "
+             f"states {rel_st:.3e}")
+        if not (same and rel <= 1e-9 and rel_st <= 1e-9):
+            raise AssertionError(f"card and CPU steps disagree (hdp {hdp})")
+    # the same step through a one-rank NCCL group
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        outs = []
+        for group in (dist.group.WORLD, None):
+            step = records.build_sharded_vi_step(
+                T, K, hdp_update=True, device="cuda", group=group,
+                **RECORDS_HDP)
+            outs.append(step(d["Y"], d["resp"], records.init_record_states(
+                R, K, T, device="cuda"), d["rho"], d["respPair"]))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(x, y) for x, y in zip(outs[0][:5], outs[1][:5]))
+    _say("records_parity", f"one-rank NCCL group: identical to the step "
+         f"without a group {same} (ELBO {float(outs[0][4]):.6f})")
+    if not same:
+        raise AssertionError("the NCCL group changed the step")
+    fn, args = entry()
+    (q, q_lat, f_last), secs = _timed(torch, lambda: fn(*args))
+    ok = (bool(torch.isfinite(q).all() and torch.isfinite(q_lat).all()
+               and torch.isfinite(f_last).all())
+          and q.shape == (64,) and f_last.shape == (90, 1))
+    _say("records_parity", f"entry() on the card: one refit at T 90, N 64 "
+         f"in {secs:.3f} s, finite outputs of the expected shapes {ok}")
+    if not ok:
+        raise AssertionError("entry() gave wrong outputs")
+    return lc_all
+
+
+TIMING_BEATS = 500
+TIMING_KEYS = {"refit_batch", "refit_one", "seed_score", "fb", "kernel_fit",
+               "q_elbo", "hdp_update", "warp"}
+
+
+def phase_timing(torch, np):
+    from hdpgpc_torch.data.loader import synthetic_beats
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    y, _z = synthetic_beats(2272, T=90, n_clusters=4, noise=0.05, seed=0)
+    y = y[:TIMING_BEATS]
+    runs = {}
+    for timing in (False, True):
+        if timing:
+            os.environ["HDPGPC_TIMING"] = "1"
+        try:
+            m = _model(HDPGPC, y, SLICE_EST_LIMIT, "float32", "cuda")
+        finally:
+            os.environ.pop("HDPGPC_TIMING", None)
+        secs, lc = _counted(lambda: _sweep(
+            torch, np, m, y, f"chip_smoke_timing_{int(timing)}.log"))
+        runs[timing] = (m, secs, lc)
+        _say("timing", f"HDPGPC_TIMING={int(timing)}: sweeps "
+             f"{len(m.train_elbo)}, M {m.M}, {secs:.3f} s, launches {lc}")
+    (a, _sa, _la), (b, secs, lc) = runs[False], runs[True]
+    same, rel = _same_sweeps(np, a, b)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        b.print_timings()
+    for ln in buf.getvalue().splitlines():
+        _say("timing", ln.strip())
+    tracked = sum(b.timings.values())
+    keys_ok = set(b.timings) <= TIMING_KEYS and not a.timings
+    _say("timing", f"identical partitions {same} (ELBO rel diff "
+         f"{rel:.3e}); keys {sorted(b.timings)} within the eight "
+         f"{keys_ok}; tracked {tracked:.3f} s of the sweep's {secs:.3f} s")
+    if not (same and keys_ok and b.timings and tracked <= secs):
+        raise AssertionError("the timed sweep differs or its timings are "
+                             "wrong")
+    return lc
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1064,7 +1381,8 @@ def main(argv=None):
     launches = {k: {p: None for p in ("offline", "online", "warp",
                                       "warp_parity", "online_warp", "ml_em",
                                       "reload", "checkpoint", "stream",
-                                      "inducing")}
+                                      "inducing", "records",
+                                      "records_parity", "timing")}
                 for k in ("spd_solve", "rbf_gram")}
     if "build" in phases or "kernels" in phases:
         phase_build()
@@ -1109,6 +1427,17 @@ def main(argv=None):
     if "inducing" in phases:
         for k, v in phase_inducing(torch, np).items():
             launches[k]["inducing"] = v
+    if "records" in phases:
+        lc, records_shapes = phase_records(torch, np)
+        stream_shapes.update(records_shapes)
+        for k, v in lc.items():
+            launches[k]["records"] = v
+    if "records_parity" in phases:
+        for k, v in phase_records_parity(torch, np).items():
+            launches[k]["records_parity"] = v
+    if "timing" in phases:
+        for k, v in phase_timing(torch, np).items():
+            launches[k]["timing"] = v
     src = {"spd_solve": ("hdpgpc_torch/csrc/spd_solve.cu",
                          "hdpgpc_tpu/ops/pallas/chol_solve.py:295"),
            "rbf_gram": ("hdpgpc_torch/csrc/rbf_gram.cu",
@@ -1130,6 +1459,11 @@ def main(argv=None):
                                  for d in ("float32", "float64")}
                 for (n, T) in SOLVE_TIMED if (n, T) != (16, 90)}
             entry["shapes"].update(stream_shapes)
+        else:
+            entry["shapes"] = {
+                f"{T}x{D}": {d: rec[f"rbf_gram_{T}x{D}_{d}"]
+                             for d in ("float32", "float64")}
+                for (T, D) in GRAM_ND_SHAPES if T == 90}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ stream engine's carry, and ``online_caches_from_numpy`` copies a model's
 online caches and HDP globals (numpy in both packages), so that both
 packages can go on from one mid-stream state.
 ``frozen_stream_state_from_numpy`` builds the frozen-cluster
-classifier's state (models/streaming.py). ``tree_leaves`` and
+classifier's state (models/streaming.py), and
+``record_states_from_numpy`` the (R, K)-batched states of the
+multi-record step (parallel/records.py). ``tree_leaves`` and
 ``tree_unflatten`` flatten a state in ``jax.tree.leaves`` order
 (NamedTuple fields depth-first), the order of the checkpoints' per-leaf
 keys, which both packages write and read.
@@ -62,6 +64,18 @@ def cluster_state_from_numpy(d, device="cpu", dtype=torch.float64
         else:
             fields[f] = _t(v, device, dtype)
     return ClusterState(**fields)
+
+
+def record_states_from_numpy(d, device="cpu", dtype=torch.float64
+                             ) -> ClusterState:
+    """hdpgpc_tpu's (R, K)-batched ``ClusterState`` (its
+    parallel.records.init_record_states or a step's output, numpy
+    leaves) as the port's, every leaf with its (R, K) leading dims."""
+    st = cluster_state_from_numpy(d, device, dtype)
+    if st.n.ndim != 2 or st.K0.shape[:2] != st.n.shape:
+        raise ValueError(f"record states need (R, K) leading dims; the "
+                         f"counts have shape {tuple(st.n.shape)}")
+    return st
 
 
 _STREAM_INT = ("n", "last_t", "prev_state", "M_rho", "M", "t", "slot_uid",

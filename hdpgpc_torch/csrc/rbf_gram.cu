@@ -1,15 +1,18 @@
-// Kernel A: the GP prior Gram on a 1-D input grid, in one launch.
+// Kernel A: the GP prior Gram on a (T, D) input grid, in one launch.
 //
-//   out[i, j] = c * exp(-0.5 * (x1[i] - x2[j])^2 / l^2)  (+ n if i == j)
+//   out[i, j] = c * exp(-0.5 * sum_d (x1[i, d] - x2[j, d])^2 / l^2)
+//               (+ n if i == j)
+//
+// x1 (T1, D) and x2 (T2, D) are row-major; a 1-D grid is D = 1.
 //
 // Replaces the TPU kernel hdpgpc_tpu/ops/pallas/gram.py::_gram_kernel
 // (rbf_gram_pallas). The refit path builds every cluster's prior Gram
 // K0 through it (models/gplds.py: init_cluster_state,
-// apply_kernel_fit), and ops/kernels.py::gram sends every 1-D Gram on
-// the card here, with the white noise n on the diagonal when asked.
+// apply_kernel_fit), and ops/kernels.py::gram sends every Gram on the
+// card here, with the white noise n on the diagonal when asked.
 //
-// Bound on this card: stores. Each output costs one exp and 5 flops
-// and is written once; the inputs are T1 + T2 + 3 scalars. At T = 90
+// Bound on this card: stores. Each output costs one exp and 3 D + 3
+// flops and is written once; the inputs are (T1 + T2) D + 3 scalars. At T = 90
 // the whole call is 32.4 KB (float32) or 64.8 KB (float64) of stores,
 // about 10-20 ns at 3.35 TB/s, far below one launch's latency, so the
 // launch itself sets the time.
@@ -23,9 +26,11 @@
 // of 4 in float32, of 2 in float64), else element by element; a warp
 // writes 512 consecutive bytes of a row. The arithmetic is written in
 // the same order as the plain PyTorch version (ops/kernels.py::
-// rbf_gram, then + n * eye): (-0.5 * d^2) / l2, exp, times c, plus n,
+// rbf_gram, then + n * eye): each square rounded (no fused multiply-add)
+// and summed over d in order, (-0.5 * d2) / l2, exp, times c, plus n,
 // with IEEE division and the accurate exp, so the two agree to the last
-// bits. No padding: the ragged edge is masked.
+// bits; at D = 1 the sum is the one square, the arithmetic of the 1-D
+// kernel. No padding: the ragged edge is masked.
 
 #include <cuda_runtime.h>
 
@@ -33,6 +38,14 @@ namespace {
 
 constexpr int kCols = 32;   // threads along a row
 constexpr int kRowsPerBlock = 8;
+
+// a product rounded on its own, so that the next add is not fused
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
 
 template <typename scalar_t>
 struct Vec16;
@@ -60,7 +73,7 @@ __global__ void rbf_gram_kernel(const scalar_t* __restrict__ x1,
                                 const scalar_t* __restrict__ lp,
                                 const scalar_t* __restrict__ np,
                                 scalar_t* __restrict__ out, int T1, int T2,
-                                int vec) {
+                                int D, int vec) {
   using V = Vec16<scalar_t>;
   const int i = blockIdx.y * kRowsPerBlock + threadIdx.y;
   const int j0 = (blockIdx.x * kCols + threadIdx.x) * V::n;
@@ -68,14 +81,20 @@ __global__ void rbf_gram_kernel(const scalar_t* __restrict__ x1,
   const scalar_t c = *cp;
   const scalar_t l = *lp;
   const scalar_t l2 = l * l;
-  const scalar_t xi = x1[i];
+  const scalar_t* xi = x1 + static_cast<size_t>(i) * D;
   scalar_t v[V::n];
 #pragma unroll
   for (int e = 0; e < V::n; ++e) {
     const int j = j0 + e;
     if (j < T2) {
-      const scalar_t d = xi - x2[j];
-      const scalar_t z = scalar_t(-0.5) * (d * d);
+      const scalar_t* xj = x2 + static_cast<size_t>(j) * D;
+      scalar_t d = xi[0] - xj[0];
+      scalar_t d2 = mul_rn(d, d);
+      for (int k = 1; k < D; ++k) {
+        d = xi[k] - xj[k];
+        d2 = d2 + mul_rn(d, d);
+      }
+      const scalar_t z = scalar_t(-0.5) * d2;
       v[e] = c * exp(z / l2);
       if (np != nullptr && i == j) v[e] = v[e] + *np;
     }
@@ -92,8 +111,9 @@ __global__ void rbf_gram_kernel(const scalar_t* __restrict__ x1,
 
 template <typename scalar_t>
 int launch(const void* x1, const void* x2, const void* c, const void* l,
-           const void* noise, void* out, int T1, int T2, void* stream) {
-  if (T1 <= 0 || T2 <= 0 || c == nullptr || l == nullptr)
+           const void* noise, void* out, int T1, int T2, int D,
+           void* stream) {
+  if (T1 <= 0 || T2 <= 0 || D <= 0 || c == nullptr || l == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int n = Vec16<scalar_t>::n;
   // whole vectors on every row: T2 a multiple of the vector and out
@@ -109,21 +129,21 @@ int launch(const void* x1, const void* x2, const void* c, const void* l,
       static_cast<const scalar_t*>(x1), static_cast<const scalar_t*>(x2),
       static_cast<const scalar_t*>(c), static_cast<const scalar_t*>(l),
       static_cast<const scalar_t*>(noise), static_cast<scalar_t*>(out), T1,
-      T2, vec);
+      T2, D, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// noise may be null: no diagonal term
+// x1 (T1, D), x2 (T2, D) row-major; noise may be null: no diagonal term
 extern "C" int rbf_gram_f32(const void* x1, const void* x2, const void* c,
                             const void* l, const void* noise, void* out,
-                            int T1, int T2, void* stream) {
-  return launch<float>(x1, x2, c, l, noise, out, T1, T2, stream);
+                            int T1, int T2, int D, void* stream) {
+  return launch<float>(x1, x2, c, l, noise, out, T1, T2, D, stream);
 }
 
 extern "C" int rbf_gram_f64(const void* x1, const void* x2, const void* c,
                             const void* l, const void* noise, void* out,
-                            int T1, int T2, void* stream) {
-  return launch<double>(x1, x2, c, l, noise, out, T1, T2, stream);
+                            int T1, int T2, int D, void* stream) {
+  return launch<double>(x1, x2, c, l, noise, out, T1, T2, D, stream);
 }

@@ -64,6 +64,27 @@ def load_record(rec: str, lead: Optional[int] = None,
     return data, labels
 
 
+def record_or_synthetic(rec: str, lead: Optional[int] = None,
+                        beats: Optional[int] = None, seed: int = 0
+                        ) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """Record ``rec`` (``load_record``), its first ``beats`` beats; where
+    there is no data directory or no such record, ``synthetic_beats``
+    (record 100's 2272 beats of T = 90 unless ``beats`` is given, both
+    leads unless ``lead`` is, 4 clusters, noise 0.05, ``seed``) with its
+    generating labels. Returns (data (N, T, L), labels, synthetic)."""
+    try:
+        data, labels = load_record(rec, lead=lead)
+        synthetic = False
+    except FileNotFoundError:
+        data, labels = synthetic_beats(
+            beats or 2272, T=90, n_clusters=4,
+            n_outputs=1 if lead is not None else 2, noise=0.05, seed=seed)
+        synthetic = True
+    if beats:
+        data, labels = data[:beats], labels[:beats]
+    return data, labels, synthetic
+
+
 def default_x_basis(T: int) -> np.ndarray:
     """Time index support [0, T) as column vector (test_offline.py:60)."""
     return np.atleast_2d(np.arange(0, T, 1, dtype=np.float64)).T

@@ -29,13 +29,19 @@ models/stream_online.py holds the fused stream engine (warp off,
 Bayesian) and models/streaming.py the frozen-cluster classifier.
 hdpgpc_tpu's legacy round-1 pickle checkpoints are not read (they hold
 JAX arrays and hdpgpc_tpu classes).
+
+With ``HDPGPC_TIMING=1`` in the environment a model times its phases
+(``timings``, ``counts``, ``print_timings``; see ``_install_timers``);
+``warmup_programs(N)`` runs the refit lattice once up front.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
+import os
 import time
 import zipfile
 from typing import Dict, List, Optional, Tuple
@@ -52,6 +58,7 @@ from hdpgpc_torch.models.gplds import ClusterState
 from hdpgpc_torch.models.kernel_fit import (fit_kernel, fit_kernel_batch,
                                             fit_kernel_sgpr, fit_kernel_svgp)
 from hdpgpc_torch.models.streaming import emission_scores
+from hdpgpc_torch.ops import _build
 from hdpgpc_torch.ops import hmm as hmm_ops
 from hdpgpc_torch.ops import linalg
 from hdpgpc_torch.ops import stick_breaking as sb
@@ -101,7 +108,9 @@ class HDPGPC:
     """Switching GP-LDS mixture with an HDP prior over the HMM structure.
 
     Takes a ``ModelConfig`` or the reference-style kwargs
-    (GPI_HDP.__init__, GPI_HDP.py:100-174), plus ``device``.
+    (GPI_HDP.__init__, GPI_HDP.py:100-174), plus ``device`` and
+    ``kernel_fit_iters`` (the kernel fits' Adam budget, GPConfig's
+    default when None).
     """
 
     def __init__(self, x_basis, M: Optional[int] = None, n_outputs: int = 1,
@@ -129,6 +138,7 @@ class HDPGPC:
                  reduce_outputs: bool = False,
                  reduce_outputs_ratio: float = 1.0,
                  hdp_hyp: str = "balanced", compute_dtype: str = "float64",
+                 kernel_fit_iters: Optional[int] = None,
                  config: Optional[ModelConfig] = None,
                  device=DEFAULT_DEVICE,
                  **_ignored):
@@ -148,6 +158,9 @@ class HDPGPC:
                 estimation_limit=estimation_limit,
                 inducing_points=bool(inducing_points),
                 variational_inducing=bool(variational_inducing))
+            if kernel_fit_iters is not None:
+                gp_cfg = dataclasses.replace(
+                    gp_cfg, kernel_fit_iters=int(kernel_fit_iters))
             warp_cfg = WarpConfig(noise_warp=float(noise_warp),
                                   bound_noise_warp=tuple(bound_noise_warp),
                                   mode=mode_warp, method=method_compute_warp)
@@ -222,6 +235,12 @@ class HDPGPC:
         self.respPair_last = None
         self.elbo_last = None
         self.metrics = MetricsLog()
+        # phase timing (HDPGPC_TIMING=1; _install_timers): seconds and
+        # calls by phase, and the phases open now
+        self._timing_on = os.environ.get("HDPGPC_TIMING") == "1"
+        self.timings: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+        self._timing_stack: List[list] = []
         self._refits: Dict = {}
         # per-include_batch refit memo (see _job_key); [hits, misses]
         self._refit_memo: Dict = {}
@@ -285,6 +304,41 @@ class HDPGPC:
                 full_backward=full_backward, bucket=bucket,
                 free_deg=float(self.cfg.gp.free_deg_mniw))
         return self._refits[key]
+
+    def warmup_programs(self, N: int) -> None:
+        """Build both kernel libraries (on a card) and run the refit
+        lattice for data length N once (bucket x batch width x
+        update_params, as hdpgpc_tpu compiles it), on zero beats and a
+        cluster marked fitted (no kernel fit), so that a timed sweep
+        pays no nvcc build and no first call of a cuBLAS or cuSOLVER
+        routine. Memos, counters and timings are left as they were."""
+        if self.device.type == "cuda":
+            _build.load()
+        dummy_Y = np.zeros((N, self.Tb))
+        base = self._new_cluster()
+        base = Cluster(base.state, fitted=True, state_key=base.state_key)
+        for update_params in (True, False):
+            widths = [1] if N <= self._SMALL_BUCKET else [1, 2,
+                                                          self._MAX_BATCH]
+            for B in widths:
+                for n_mem in (1, self._SMALL_BUCKET + 1):
+                    if n_mem > N:
+                        continue
+                    rc = np.zeros(N)
+                    rc[:n_mem] = 1.0
+                    self._full_refit_batch_raw(
+                        [(base, 0, dummy_Y, rc)] * B,
+                        update_params=update_params)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def print_timings(self):
+        tot = sum(self.timings.values())
+        for k in sorted(self.timings, key=lambda k: -self.timings[k]):
+            print(f"  [time] {k}: {self.timings[k]:.1f}s x{self.counts[k]}")
+        print(f"  [time] total tracked: {tot:.1f}s")
+        print(f"  [memo] refit hits/misses: {self._memo_stats[0]}/"
+              f"{self._memo_stats[1]}")
 
     def _fit_theta(self, y: np.ndarray) -> KernelParams:
         """Kernel hyperparameter fit on one beat: the exact-GP Adam fit
@@ -2901,3 +2955,58 @@ class HDPGPC:
                 if f"cache_{k}" in z:
                     setattr(model, k, z[f"cache_{k}"])
         return model
+
+
+def _install_timers():
+    """Wrap the orchestrator's phases with wall timers, on per instance
+    with HDPGPC_TIMING=1: hdpgpc_tpu's nine methods under its eight keys
+    (the port has no ``_fb``; its online FB, ``_vlt_online``, is timed as
+    ``fb`` with ``_fb_hard``). A phase is charged its own time only: the
+    time of a timed phase it calls goes to that phase, so the timings
+    sum to no more than the wall time; a phase called inside itself
+    counts once. On a card the clock is read after a device
+    synchronise, so a phase is charged its device work, not the
+    launching of it."""
+
+    def timed(name):
+        def deco(fn):
+            @functools.wraps(fn)
+            def wrapper(self, *a, **k):
+                if not getattr(self, "_timing_on", False) or any(
+                        f[0] == name for f in self._timing_stack):
+                    return fn(self, *a, **k)
+                stack = self._timing_stack
+                cuda = self.device.type == "cuda"
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                frame = [name, 0.0]
+                stack.append(frame)
+                t0 = time.perf_counter()
+                try:
+                    return fn(self, *a, **k)
+                finally:
+                    if cuda:
+                        torch.cuda.synchronize(self.device)
+                    dt = time.perf_counter() - t0
+                    stack.pop()
+                    self.timings[name] = (self.timings.get(name, 0.0)
+                                          + dt - frame[1])
+                    self.counts[name] = self.counts.get(name, 0) + 1
+                    if stack:
+                        stack[-1][1] += dt
+            return wrapper
+        return deco
+
+    HDPGPC._full_refit_batch = timed("refit_batch")(HDPGPC._full_refit_batch)
+    HDPGPC._full_refit = timed("refit_one")(HDPGPC._full_refit)
+    HDPGPC._seed_score = timed("seed_score")(HDPGPC._seed_score)
+    HDPGPC._vlt_online = timed("fb")(HDPGPC._vlt_online)
+    HDPGPC._fb_hard = timed("fb")(HDPGPC._fb_hard)
+    HDPGPC._maybe_kernel_fit = timed("kernel_fit")(HDPGPC._maybe_kernel_fit)
+    HDPGPC.compute_q_elbo = timed("q_elbo")(HDPGPC.compute_q_elbo)
+    HDPGPC._hdp_global_update = timed("hdp_update")(
+        HDPGPC._hdp_global_update)
+    HDPGPC._warp_by_resp = timed("warp")(HDPGPC._warp_by_resp)
+
+
+_install_timers()

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import types
 from pathlib import Path
@@ -31,6 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB: Optional[types.SimpleNamespace] = None
+# one build at a time: threads driving several cards share the libraries
+_LOCK = threading.Lock()
 # filled by build(): library paths, wall seconds spent in nvcc (0.0 when
 # every library was already built), and nvcc's -Xptxas -v reports
 BUILD_INFO: Dict[str, object] = {}
@@ -47,8 +50,8 @@ _SIGNATURES = {
         "spd_solve_f64": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
     "rbf_gram": {
-        "rbf_gram_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
-        "rbf_gram_f64": ([_P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
+        "rbf_gram_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "rbf_gram_f64": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
 }
 
@@ -115,17 +118,24 @@ def build() -> Dict[str, Path]:
 def load() -> types.SimpleNamespace:
     """The kernels' C functions, built on first use."""
     global _LIB
-    if _LIB is None:
-        fns = {}
-        for stem, so in build().items():
-            lib = ctypes.CDLL(str(so))
-            for name, (argtypes, restype) in _SIGNATURES[stem].items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-                fns[name] = fn
-        _LIB = types.SimpleNamespace(**fns)
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _load_all()
     return _LIB
+
+
+def _load_all() -> types.SimpleNamespace:
+    fns = {}
+    for stem, so in build().items():
+        lib = ctypes.CDLL(str(so))
+        for name, (argtypes, restype) in _SIGNATURES[stem].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def check(err: int, what: str) -> None:

@@ -31,7 +31,7 @@ def row_normalize_log(logw: torch.Tensor, axis: int = 1):
 
 def _safe_exp_rows(x: torch.Tensor) -> torch.Tensor:
     """exp(x - rowmax) with NaN -> 1e-8 (reference local safe_exp)."""
-    m = torch.amax(x, dim=1, keepdim=True)
+    m = torch.amax(x, dim=-1, keepdim=True)
     return torch.nan_to_num(torch.exp(x - m), nan=1e-8)
 
 
@@ -43,11 +43,13 @@ def hard_resp(logresp: torch.Tensor) -> torch.Tensor:
 
 
 def hard_resp_pair(logrespPair: torch.Tensor) -> torch.Tensor:
-    """Hard one-hot over flattened (K, K) per row (GPI_HDP.py:344-350)."""
-    N, K, _ = logrespPair.shape
-    idx = torch.argmax(logrespPair.reshape(N, K * K), dim=-1)
+    """Hard one-hot over flattened (K, K) per row (GPI_HDP.py:344-350);
+    (*B, N, K, K)."""
+    shape = logrespPair.shape
+    K = shape[-1]
+    idx = torch.argmax(logrespPair.reshape(shape[:-2] + (K * K,)), dim=-1)
     return torch.nn.functional.one_hot(idx, K * K).to(
-        logrespPair.dtype).reshape(N, K, K)
+        logrespPair.dtype).reshape(shape)
 
 
 def _norm_compose(a, b):
@@ -63,25 +65,27 @@ def _floor(M: torch.Tensor, below: float) -> torch.Tensor:
 
 
 def forward(start_log_pi, trans_log_pi, log_q):
-    """Normalised forward filtering. start_log_pi (K,), trans_log_pi
-    (K, K), log_q (N, K) row-normalised log evidence. Returns fmsg (N, K)
-    and margPrObs (N,)."""
+    """Normalised forward filtering. start_log_pi (*B, K), trans_log_pi
+    (*B, K, K), log_q (*B, N, K) row-normalised log evidence, with any
+    leading batch dims *B (records), each record on its own. Returns
+    fmsg (*B, N, K) and margPrObs (*B, N)."""
     pi = _floor(torch.exp(start_log_pi), 1e-10)
-    PiT = _floor(_safe_exp_rows(trans_log_pi.T), 1e-6)
-    q = _safe_exp_rows(log_q)
+    PiT = _floor(_safe_exp_rows(trans_log_pi.transpose(-2, -1)), 1e-6)
+    q = _safe_exp_rows(log_q).movedim(-2, 0)        # (N, *B, K)
     N = q.shape[0]
     a1 = pi * q[0]
-    marg1 = torch.sum(a1)
-    f1 = a1 / marg1
+    marg1 = torch.sum(a1, -1)
+    f1 = a1 / marg1[..., None]
     if N == 1:
-        return f1[None], marg1[None]
-    M = q[1:, :, None] * PiT[None]              # diag(q_t) PiT
+        return f1.unsqueeze(-2), marg1[..., None]
+    M = q[1:, ..., None] * PiT                      # diag(q_t) PiT
     C = associative_scan(_norm_compose, M)
-    alpha = C @ f1
-    fmsg = torch.cat([f1[None], alpha / torch.sum(alpha, 1, keepdim=True)])
+    alpha = torch.sum(C * f1[..., None, :], -1)     # C_t f1
+    fmsg = torch.cat([f1[None], alpha / torch.sum(alpha, -1, keepdim=True)])
     # marg_t on the NORMALISED previous message (GPI_HDP.py:3595-3601)
-    marg_rest = torch.sum(torch.einsum("tij,tj->ti", M, fmsg[:-1]), 1)
-    return fmsg, torch.cat([marg1[None], marg_rest])
+    marg_rest = torch.sum(torch.sum(M * fmsg[:-1, ..., None, :], -1), -1)
+    return (fmsg.movedim(0, -2),
+            torch.cat([marg1[None], marg_rest]).movedim(0, -1))
 
 
 def forward_seq(start_log_pi, trans_log_pi, log_q):
@@ -112,18 +116,19 @@ def forward_incremental(fmsg_prev, trans_log_pi, log_q_last):
 def backward(trans_log_pi, log_q):
     """Backward messages with the reference's quirky normalisation:
     bmsg[t] = PiMat @ (bmsg[t+1] * q[t+1]) divided by the sum of its
-    entries EXCLUDING the last column (GPI_HDP.py:3644-3646)."""
+    entries EXCLUDING the last column (GPI_HDP.py:3644-3646).
+    trans_log_pi (*B, K, K), log_q (*B, N, K) -> (*B, N, K)."""
     PiMat = _floor(_safe_exp_rows(trans_log_pi), 1e-5)
-    q = _safe_exp_rows(log_q)
-    N, K = q.shape
-    b_last = torch.ones(K, dtype=q.dtype, device=q.device)
+    q = _safe_exp_rows(log_q).movedim(-2, 0)        # (N, *B, K)
+    N = q.shape[0]
+    b_last = torch.ones(q.shape[1:], dtype=q.dtype, device=q.device)
     if N == 1:
-        return b_last[None]
-    Bm = PiMat[None] * q[1:, None, :]            # PiMat diag(q)
+        return b_last.unsqueeze(-2)
+    Bm = PiMat * q[1:, ..., None, :]                # PiMat diag(q)
     C = associative_scan(_norm_compose, Bm, reverse=True)
-    b = torch.sum(C, dim=2)
-    b = b / torch.sum(b[:, :-1], dim=1, keepdim=True)
-    return torch.cat([b, b_last[None]])
+    b = torch.sum(C, dim=-1)
+    b = b / torch.sum(b[..., :-1], dim=-1, keepdim=True)
+    return torch.cat([b, b_last[None]]).movedim(0, -2)
 
 
 def backward_seq(trans_log_pi, log_q):
@@ -140,36 +145,43 @@ def backward_seq(trans_log_pi, log_q):
 
 
 def coupled_pair_log(alpha, beta, trans_log_pi, log_q):
-    """log respPair (N, K, K), reference coupled_state_coef
+    """log respPair (*B, N, K, K), reference coupled_state_coef
     (GPI_HDP.py:3651-3699)."""
     PiMat = _safe_exp_rows(trans_log_pi)
     bmsgSoftEv = _safe_exp_rows(log_q) * beta
-    N, K = alpha.shape
-    respPair = torch.zeros((N, K, K), dtype=alpha.dtype, device=alpha.device)
-    respPair[1:] = alpha[:-1][:, :, None] * bmsgSoftEv[1:][:, None, :]
-    respPair = respPair * PiMat[None]
-    den = torch.sum(respPair, dim=(1, 2))[:, None, None]
+    N, K = alpha.shape[-2:]
+    respPair = alpha.new_zeros(alpha.shape[:-2] + (N, K, K))
+    respPair[..., 1:, :, :] = (alpha[..., :-1, :, None]
+                               * bmsgSoftEv[..., 1:, None, :])
+    respPair = respPair * PiMat[..., None, :, :]
+    den = torch.sum(respPair, dim=(-2, -1), keepdim=True)
     den = torch.where(den == 0, torch.full_like(den, 1e-10), den)
     return torch.log(respPair / den)
 
 
 def _fb_messages(start_log_pi, trans_log_pi, log_q):
     """Shared FB core: returns (logresp, logrespPair)."""
-    q_norm, _ = row_normalize_log(log_q, axis=1)
+    q_norm, _ = row_normalize_log(log_q, axis=-1)
     alpha, _marg = forward(start_log_pi, trans_log_pi, q_norm)
     beta = backward(trans_log_pi, q_norm)
-    logresp, _ = row_normalize_log(torch.log(alpha * beta), axis=1)
+    logresp, _ = row_normalize_log(torch.log(alpha * beta), axis=-1)
     lrp = coupled_pair_log(alpha, beta, trans_log_pi, q_norm)
     # the reference's LogLik(axis=1) isinf early-return always fires
-    # (row 0 is log 0): the raw globally-normalised pair tensor is used
-    c = torch.amax(lrp, dim=1, keepdim=True)
-    logrespPair = torch.where(torch.any(torch.isinf(c)), lrp, lrp - c)
+    # (row 0 is log 0): the raw globally-normalised pair tensor is used;
+    # the test is per record
+    c = torch.amax(lrp, dim=-2, keepdim=True)
+    any_inf = torch.isinf(c).flatten(-3).any(-1)
+    logrespPair = torch.where(any_inf[..., None, None, None], lrp, lrp - c)
     return logresp, logrespPair
 
 
 def fb_hard(start_log_pi, trans_log_pi, log_q):
     """normalise q -> FB -> hard resp and respPair. Returns (resp,
-    logresp, respPair, logrespPair) (variational_local_terms contract)."""
+    logresp, respPair, logrespPair) (variational_local_terms contract).
+    Batched over any leading dims *B of start_log_pi (*B, K),
+    trans_log_pi (*B, K, K) and log_q (*B, N, K) (the records of
+    parallel/records.py), with no loop over them: each record gets the
+    bits of its own one-record call."""
     logresp, logrespPair = _fb_messages(start_log_pi, trans_log_pi, log_q)
     return (hard_resp(logresp), logresp, hard_resp_pair(logrespPair),
             logrespPair)
@@ -239,8 +251,9 @@ def baum_welch(log_alpha, log_beta, log_psi):
 
 
 def entropy_terms(resp, respPair, eps=1e-30):
-    """H[q] nonlinear ELBO terms (GPI_HDP.py:2682-2700)."""
-    Hstart = -torch.sum(resp * torch.log(resp + eps), dim=0)
-    sigma = respPair / (torch.sum(respPair, dim=2, keepdim=True) + eps) + eps
-    Htable = -torch.sum(respPair * torch.log(sigma), dim=0)
-    return torch.sum(Htable) + torch.sum(Hstart)
+    """H[q] nonlinear ELBO terms (GPI_HDP.py:2682-2700); resp (*B, N, K),
+    respPair (*B, N, K, K) -> (*B,)."""
+    Hstart = -torch.sum(resp * torch.log(resp + eps), dim=-2)
+    sigma = respPair / (torch.sum(respPair, dim=-1, keepdim=True) + eps) + eps
+    Htable = -torch.sum(respPair * torch.log(sigma), dim=-3)
+    return torch.sum(Htable, dim=(-2, -1)) + torch.sum(Hstart, dim=-1)

@@ -9,10 +9,10 @@ WhiteKernel(n)`` (GPI_HDP.py:159-166). sklearn semantics are kept:
   when ``X is Y`` (GPI.py:136-139 relies on it);
 * one-argument evaluation ``k(X)`` adds ``n`` on the diagonal.
 
-``gram`` sends every 1-D grid through ``fused_rbf_gram``: the plain
-version (``rbf_gram_noise``) for a CPU tensor, kernel A for a CUDA
-tensor, in both dtypes and at any T, with the noise term fused into
-the one launch.
+``gram`` sends every grid, (T,) or (T, D), through ``fused_rbf_gram``:
+the plain version (``rbf_gram_noise``) for a CPU tensor, kernel A for a
+CUDA tensor, in both dtypes and at any T and D, with the noise term
+fused into the one launch.
 """
 
 from __future__ import annotations
@@ -64,9 +64,9 @@ def _device_scalar(v, dt: torch.dtype, dev: torch.device) -> torch.Tensor:
 
 def fused_rbf_gram(x1: torch.Tensor, x2: torch.Tensor, outputscale,
                    lengthscale, noise=None) -> torch.Tensor:
-    """RBF Gram of 1-D grids x1 (T1,), x2 (T2,) -> (T1, T2), plus
-    ``noise`` on the diagonal when it is given: the plain version on the
-    CPU, kernel A (one launch) on a CUDA tensor."""
+    """RBF Gram of grids x1 (T1,) or (T1, D) and x2 (T2,) or (T2, D) ->
+    (T1, T2), plus ``noise`` on the diagonal when it is given: the plain
+    version on the CPU, kernel A (one launch) on a CUDA tensor."""
     if x1.device.type == "cpu" and x2.device.type == "cpu":
         return rbf_gram_noise(x1, x2, outputscale, lengthscale, noise)
     if not (x1.is_cuda and x2.is_cuda and x1.device == x2.device):
@@ -75,8 +75,13 @@ def fused_rbf_gram(x1: torch.Tensor, x2: torch.Tensor, outputscale,
     if x1.dtype != x2.dtype or x1.dtype not in (torch.float32,
                                                 torch.float64):
         raise TypeError(f"fused_rbf_gram: dtypes {x1.dtype}, {x2.dtype}")
-    if x1.ndim != 1 or x2.ndim != 1:
-        raise ValueError("fused_rbf_gram: the kernel takes 1-D grids")
+    if x1.ndim not in (1, 2) or x2.ndim not in (1, 2):
+        raise ValueError("fused_rbf_gram: the kernel takes (T,) or (T, D) "
+                         f"grids, not {tuple(x1.shape)}, {tuple(x2.shape)}")
+    D = 1 if x1.ndim == 1 else x1.shape[1]
+    if (1 if x2.ndim == 1 else x2.shape[1]) != D or D < 1:
+        raise ValueError(f"fused_rbf_gram: grids of {tuple(x1.shape)} and "
+                         f"{tuple(x2.shape)} differ in D")
     if not (x1.is_contiguous() and x2.is_contiguous()):
         raise ValueError("fused_rbf_gram: inputs must be contiguous")
     T1, T2 = x1.shape[0], x2.shape[0]
@@ -96,7 +101,7 @@ def fused_rbf_gram(x1: torch.Tensor, x2: torch.Tensor, outputscale,
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(fn(x1.data_ptr(), x2.data_ptr(), c.data_ptr(),
                         ls.data_ptr(), None if n is None else n.data_ptr(),
-                        out.data_ptr(), T1, T2, stream), "rbf_gram")
+                        out.data_ptr(), T1, T2, D, stream), "rbf_gram")
     fused_rbf_gram.launches += 1
     return out
 
@@ -115,9 +120,7 @@ def gram(params: KernelParams, x1: torch.Tensor,
             include_noise = True
     elif include_noise is None:
         include_noise = False
-    if x1.numel() != x1.shape[0] or x2.numel() != x2.shape[0]:
-        raise NotImplementedError("gram: only 1-D input grids are ported")
-    return fused_rbf_gram(x1.reshape(-1).contiguous(),
-                          x2.reshape(-1).contiguous(),
+    return fused_rbf_gram(x1.reshape(x1.shape[0], -1).contiguous(),
+                          x2.reshape(x2.shape[0], -1).contiguous(),
                           params.outputscale, params.lengthscale,
                           params.noise if include_noise else None)

@@ -85,11 +85,14 @@ def spd_solve_bound(n: int, T: int, R: int, dtype) -> Tuple[float, str]:
     return _bound(nbytes, ops, dtype)
 
 
-def rbf_gram_bound(T1: int, T2: int, dtype) -> Tuple[float, str]:
-    """Kernel A with the noise: the grids and the 3 parameters read, the
-    (T1, T2) Gram written; 6 operations an element (difference, square,
-    scale, divide, exp, times c), plus one add per diagonal element."""
+def rbf_gram_bound(T1: int, T2: int, dtype, D: int = 1
+                   ) -> Tuple[float, str]:
+    """Kernel A with the noise on (T, D) grids: the grids and the 3
+    parameters read, the (T1, T2) Gram written; 3 D + 3 operations an
+    element (a difference, a square and an add a dimension, less one
+    add; scale, divide, exp, times c), plus one add per diagonal
+    element."""
     size = torch.empty((), dtype=dtype).element_size()
-    nbytes = (T1 + T2 + 3 + T1 * T2) * size
-    ops = 6.0 * T1 * T2 + min(T1, T2)
+    nbytes = ((T1 + T2) * D + 3 + T1 * T2) * size
+    ops = (3.0 * D + 3.0) * T1 * T2 + min(T1, T2)
     return _bound(nbytes, ops, dtype)

@@ -274,3 +274,63 @@ def test_stream_classifier_on_card_matches_cpu(cuda):
     for f in ("f", "P", "fmsg"):
         x, r = getattr(a, f).cpu(), getattr(b, f)
         assert ((x - r).abs().max() / r.abs().max()).item() < 1e-9
+
+
+@pytest.mark.parametrize("T,D", [(90, 3), (256, 2), (7, 5)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-6)])
+def test_rbf_gram_kernel_on_nd_grids(cuda, T, D, dtype, tol):
+    """Kernel A on (T, D) grids (one launch, the noise fused) against
+    the plain version, relative to 1 + |z| (z the exponent): over D > 1
+    the two may sum the squares in another order, and one rounding of
+    the sum moves exp(z) by |z| roundings. A (T, 1) grid gives the flat
+    grid's bits."""
+    rng = np.random.default_rng(T + D)
+    x = torch.tensor(rng.uniform(0, 6, (T, D)), dtype=dtype, device=cuda)
+    p = KernelParams(*[torch.tensor(v, dtype=dtype, device=cuda)
+                       for v in (300.0, 1.2, 0.05)])
+    before = fused_rbf_gram.launches
+    K = gram(p, x)
+    torch.cuda.synchronize()
+    assert fused_rbf_gram.launches == before + 1
+    Kp = rbf_gram_noise(x, x, *p)
+    z = 0.5 * torch.cdist(x.double(), x.double()) ** 2 / 1.2 ** 2
+    rel = ((K - Kp).abs() / ((Kp.abs() + 1e-30 * 300.0) * (1.0 + z))
+           ).max().item()
+    assert rel <= tol
+    flat = x[:, 0].contiguous()
+    assert torch.equal(gram(p, flat), gram(p, flat[:, None]))
+
+
+def test_records_step_on_card_matches_cpu(cuda):
+    """The multi-record step (hdp_update on, R = 2, float64) on the card
+    against the CPU: identical resp and respPair, the rest to 1e-9."""
+    from hdpgpc_torch import convert
+    from hdpgpc_torch.ops import stick_breaking as sb
+    from hdpgpc_torch.parallel import records
+    R, N, T, K = 2, 40, 24, 3
+    rng = np.random.default_rng(4)
+    Y = rng.standard_normal((R, N, T))
+    z = rng.integers(0, K, (R, N))
+    rp = np.zeros((R, N, K, K))
+    rp[:, np.arange(1, N)[None, :], z[:, :-1], z[:, 1:]] = 1.0
+    rho = np.tile(sb.create_init_rho(K), (R, 1))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        step = records.build_sharded_vi_step(T, K, hdp_update=True,
+                                             device=dev)
+        before = spd_solve.launches
+        out[dev] = step(Y, np.eye(K)[z], records.init_record_states(
+            R, K, T, device=dev), rho, rp)
+        if dev == "cuda":
+            assert spd_solve.launches - before == N
+    a, b = out["cuda"], out["cpu"]
+    for i in (2, 3):
+        assert torch.equal(a[i].cpu(), b[i])
+    pairs = [(a[i], b[i]) for i in (0, 1, 4)] + list(zip(
+        convert.tree_leaves(a[5]), convert.tree_leaves(b[5])))
+    for x, y in pairs:
+        if x.is_floating_point():
+            x, y = x.cpu().double(), y.double()
+            d = (x - y).abs().max() / y.abs().max().clamp(min=1e-300)
+            assert d.item() <= 1e-9
