@@ -36,33 +36,42 @@ Phases (each prints a line; any failure raises and exits non-zero):
    beats (the first birth is at beat 200), and include_sample_fast on
    the first 100, each on the card and on the CPU: identical partitions
    and M, the engine's accounting sums equal to 1e-8 relative;
-8. warp: ``include_batch(with_warp=True)`` on 2272 synthetic beats of
+8. growth: the growth stress (BASELINE config 5's ``--grow`` half,
+   examples/torch_run_stress_stream.py) through the fused engine at
+   K = 64 slots, T = 90, float32, estimation_limit=100, on 2048 beats of
+   the growth stream with 8 morphologies (one new every 256 beats), the
+   first 256 untimed: beats/s, ms per steady beat, births, the seconds
+   of the kernel fits, kernel-B launches per beat, peak memory; the gates
+   of tests/test_stress_growth.py (births after the first quarter,
+   M >= 6, M <= 64, the carry's bytes constant, majority-label accuracy
+   >= 0.85) and finite accounting;
+9. warp: ``include_batch(with_warp=True)`` on 2272 synthetic beats of
    T = 90 and TWO leads (record 102's shape, BASELINE config 3), float32,
    estimation_limit=1000, two sweeps, the warp noise from the data as
    examples/run_offline.py takes it: s/sweep, M, error, the batched warps
    run and the warp-cache hits, the seconds of one batched warp
    (B = 2272, 50 Adam steps) timed alone, each kernel's launches;
-9. warp_parity: that sweep in float64 on the first 200 beats, three
-   sweeps, card against CPU: identical partitions in every sweep, ELBO
-   to 1e-8;
-10. online_warp: include_sample_fast in float64 on a growth stream,
+10. warp_parity: that sweep in float64 on the first 200 beats, two
+    sweeps, card against CPU: identical partitions in every sweep, ELBO
+    to 1e-8;
+11. online_warp: include_sample_fast in float64 on a growth stream,
     card against CPU: 44 beats without the warp (the stream's first
     birth is at beat 40; under the warp these beats are absorbed), then
     24 with it (greedy, 250 Adam steps a warp): identical decisions;
     s/beat and warps a beat of the warped part;
-11. ml_em: the offline sweep with bayesian_params=False (the ML-EM
+12. ml_em: the offline sweep with bayesian_params=False (the ML-EM
     refit) in float64 on the first 200 beats of the slice, card against
     CPU: identical partitions; the card's s/sweep and kernel B launches;
-12. reload: the supervised path on the warp phase's beats (2272 x 2
+13. reload: the supervised path on the warp phase's beats (2272 x 2
     leads, float32): reload_model_from_labels on the first 2000 with
     their labels, then cluster_new_batch on the other 272 without and
     with learning (it_limit=2): seconds, accuracy, M and launches of
-    each; then the same on the first 300 beats (250 + 50) in float64,
+    each; then the same on the first 180 beats (150 + 30) in float64,
     card against CPU: identical labels, ELBO to 1e-9;
-13. checkpoint: save_swgp of the reload model, load_swgp on the card and
+14. checkpoint: save_swgp of the reload model, load_swgp on the card and
     on the CPU: identical cluster_new_batch labels from all three; the
     file's bytes, save and load seconds;
-14. stream: the frozen-cluster classifier (models/streaming.py) at
+15. stream: the frozen-cluster classifier (models/streaming.py) at
     BASELINE config 5's width (K = 64, T = 90, float32, templates from
     a 50 K-beat warm-up), the chunk sized from the free device memory:
     one untimed chunk, then 65,536 beats timed: beats/s, ms a chunk,
@@ -71,26 +80,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
     streamed, finite states; kernel B timed at the classifier's two
     shapes; then 2,048 beats at K = 8 in float64, card against CPU:
     identical labels, f and P to 1e-9;
-15. inducing: fit_kernel_sgpr and fit_kernel_svgp on a beat of T = 90
+16. inducing: fit_kernel_sgpr and fit_kernel_svgp on a beat of T = 90
     in float64, card against CPU (at capped iterations, as the CPU tests
     hold them against hdpgpc_tpu), one full SGPR fit timed on the card;
     include_batch with inducing_points=True on 200 beats in float64 for
     two sweeps, card against CPU: identical partitions;
-16. records: the multi-record VI step (parallel/records.py) at BASELINE
+17. records: the multi-record VI step (parallel/records.py) at BASELINE
     config 4's shape on one card: 48 synthetic records of 2272 beats
     (record r from seed r), K = 4, T = 90, float32, the slice's
     estimation limit, hard responsibilities from the generating labels,
-    hdp_update: one untimed step, two timed: s/step, beats/s, the record
+    hdp_update: one untimed step, one timed: s/step, beats/s, the record
     group and the groups a step, kernel B's launches a step and their
     shape, kernel A's launches, peak memory, the idle share of a
     profiled one-group step over the first 128 beats; the ELBO finite
     and equal to the sum of the per-record ELBOs; kernel B timed at a
     group's (4 G K, 90, 90) and all records' (4 R K, 90, 90);
-17. records_parity: 4 records of 200 beats, K = 3, float64, hdp_update
+18. records_parity: 4 records of 200 beats, K = 3, float64, hdp_update
     off and on, card against CPU (identical resp and respPair, q, q_lat,
     the ELBO and the states to 1e-9), the step through a one-rank NCCL
     group against the step without one (identical), and entry() once;
-18. timing: the slice's configuration on its first 500 beats with
+19. timing: the slice's configuration on its first 300 beats with
     HDPGPC_TIMING=1 against the same sweep without: identical
     partitions, the timer keys within hdpgpc_tpu's eight, the timings
     summing to no more than the sweep's wall time; print_timings.
@@ -115,7 +124,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "parity", "online",
-          "online_parity", "warp", "warp_parity", "online_warp", "ml_em",
+          "online_parity", "growth", "warp", "warp_parity", "online_warp", "ml_em",
           "reload", "checkpoint", "stream", "inducing", "records",
           "records_parity", "timing")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -131,24 +140,40 @@ SLICE_EST_LIMIT = 1000
 # 300 in about 2/3 of the time
 PARITY_BEATS = 200
 # kernel B's check shapes (n, T), R = T: the refit's (4 J <= 16, 90);
-# the stream engine's absorb candidates (4 K = 64, 90), its commit
-# (4, 90) and birth (2, 90); and above what the unblocked kernel of the
-# first slice took (T > 128)
-SOLVE_SHAPES = ((16, 90), (64, 90), (4, 90), (2, 90), (8, 128), (4, 200),
-                (2, 300))
+# the stream engine's absorb candidates (4 K, 90) at K = 16 and at the
+# growth stress's K = 64, its commit (4, 90) and birth (2, 90); and
+# above what the unblocked kernel of the first slice took (T > 128)
+SOLVE_SHAPES = ((16, 90), (64, 90), (256, 90), (4, 90), (2, 90), (8, 128),
+                (4, 200), (2, 300))
 # of these, the shapes the main paths launch, timed
-SOLVE_TIMED = ((16, 90), (64, 90), (4, 90), (2, 90))
+SOLVE_TIMED = ((16, 90), (64, 90), (256, 90), (4, 90), (2, 90))
 # the online phases: bench.py's engine settings on the growth stream
 GROWTH = dict(n=800, T=90, n_clusters=4, seed=7, start_beat=0,
               interval=200)
 ONLINE_K, ONLINE_CHUNK, ONLINE_WARM = 16, 32, 96
 ONLINE_MAX_ERR = 0.02
 PARITY_ENGINE_BEATS, PARITY_FAST_BEATS = 230, 100
+# the growth stress: examples/torch_run_stress_stream.py --grow's model
+# and engine at K = 64 slots on a shorter stream, in the regime of
+# tests/test_stress_growth.py: 8 morphologies, the priors' 256 beats
+# holding one of them (as the example's warm-up does at its interval of
+# beats // K). On 12 morphologies the birth rule absorbs some as
+# near-duplicates (M 7 of 12 at an interval of 128; 40 of 64 in
+# docs/STRESS.md's run), below that test's M >= morphologies - 2
+# (tools/torch_growth_regimes.py). The engine refreshes the HDP globals
+# at the end of each run() call and every GROWTH_CHUNK beats in it (the
+# example's min(--chunk, 1024)); the first GROWTH_WARM beats are
+# untimed, and M and the carry's bytes are read at the quarter (its own
+# run() call, so one more refresh there)
+GROWTH_STREAM = dict(n=2048, T=90, n_clusters=8, seed=7, start_beat=0,
+                     interval=256)
+GROWTH_K, GROWTH_CHUNK, GROWTH_WARM, GROWTH_EST = 64, 1024, 256, 100
+GROWTH_MIN_ACC = 0.85
 # the warp phases: the slice's beats with two leads, two sweeps; the
-# float64 parity prefix runs three (to convergence it takes nine, M 8,
+# float64 parity prefix runs two (to convergence it takes nine, M 8,
 # ~8 minutes of CPU on its half alone)
 WARP_LEADS, WARP_SWEEPS, WARP_PARITY_BEATS = 2, 2, 200
-WARP_PARITY_SWEEPS = 3
+WARP_PARITY_SWEEPS = 2
 # the online warp: under the warp the growth stream's new morphologies
 # are absorbed (no birth in 46 beats at interval 40, hdpgpc_tpu and the
 # port alike, on a CPU), so the stream's first ONLINE_WARP_FREE beats run
@@ -160,7 +185,7 @@ ONLINE_WARP_FREE, ONLINE_WARP_BEATS = 44, 24
 ML_EM_BEATS = 200
 # the supervised path: labelled beats, new beats; its float64 parity
 RELOAD_TRAIN, RELOAD_LEARN_SWEEPS = 2000, 2
-RELOAD_PARITY_TRAIN, RELOAD_PARITY_NEW = 250, 50
+RELOAD_PARITY_TRAIN, RELOAD_PARITY_NEW = 150, 30
 # the frozen-cluster classifier: BASELINE config 5 (docs/STRESS.md) and
 # examples/run_stress_stream.py's templates and priors; the timed beats
 # are one generation block of that run's 1M beats
@@ -179,8 +204,11 @@ INDUCING_BEATS, INDUCING_SWEEPS, INDUCING_SWEEP_ITERS = 200, 2, 300
 # 100's length, the slice's beats and estimation limit) on one card,
 # float32; its parity on 4 records of 200 beats in float64, card against
 # CPU
-RECORDS_R, RECORDS_N, RECORDS_K, RECORDS_TIMED = 48, 2272, 4, 2
+RECORDS_R, RECORDS_N, RECORDS_K, RECORDS_TIMED = 48, 2272, 4, 1
 RECORDS_PROFILED = 128
+# the beats of the one-group step that measures the refit's peak at
+# est_limit None (each of its slots is sequential)
+RECORDS_NO_LIMIT_BEATS = 1024
 RECORDS_HDP = dict(trans_alpha=1.0, start_alpha=0.1, kappa=0.0)
 RECORDS_PARITY = dict(R=4, N=200, K=3)
 
@@ -506,10 +534,10 @@ def phase_parity(torch, np):
         raise AssertionError("card and CPU sweeps disagree")
 
 
-def _growth_model(HDPGPC, y, dtype, device):
-    """The growth stress configuration (tests/test_stress_growth.py):
-    priors from the stream's first 256 beats, estimation_limit=50, at
-    most ONLINE_K clusters."""
+def _growth_model(HDPGPC, y, dtype, device, K=ONLINE_K, est=50):
+    """The growth stress configuration (tests/test_stress_growth.py,
+    examples/run_stress_stream.py:68-82): priors from the stream's first
+    256 beats, estimation_limit ``est``, at most K clusters."""
     import numpy as np
     from hdpgpc_torch.data.loader import default_x_basis
     w = y[:256]
@@ -520,8 +548,8 @@ def _growth_model(HDPGPC, y, dtype, device):
                   ini_gamma=sd, ini_sigma=std, ini_outputscale=4.0,
                   bound_sigma=(std * 0.05, std * 0.2),
                   bound_gamma=(sd * 0.05, sd * 0.2), verbose=False,
-                  hmm_switch=True, max_models=ONLINE_K,
-                  bayesian_params=True, estimation_limit=50,
+                  hmm_switch=True, max_models=K,
+                  bayesian_params=True, estimation_limit=est,
                   free_deg_MNIV=5, compute_dtype=dtype, device=device)
 
 
@@ -616,6 +644,72 @@ def phase_online_parity(torch, np):
          f"{same}, M {a.M} vs {b.M}")
     if not same:
         raise AssertionError("card and CPU include_sample_fast disagree")
+
+
+def _carry_bytes(carry):
+    from hdpgpc_torch.convert import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(carry))
+
+
+def phase_growth(torch, np):
+    from hdpgpc_torch.data.loader import synthetic_growth_stream
+    from hdpgpc_torch.models.hdpgpc import HDPGPC
+    from hdpgpc_torch.models.stream_online import OnlineStreamEngine
+    dev = torch.device("cuda")
+    y, z = synthetic_growth_stream(**GROWTH_STREAM)
+    n, quarter = y.shape[0], y.shape[0] // 4
+    eng = OnlineStreamEngine(_growth_model(HDPGPC, y, "float32", "cuda",
+                                           K=GROWTH_K, est=GROWTH_EST),
+                             K=GROWTH_K, chunk=GROWTH_CHUNK)
+    secs0 = _timed(torch, lambda: _quiet(
+        lambda: eng.run(y[:GROWTH_WARM]), "chip_smoke_growth_warm.log"))[1]
+    fits0, fit_s0 = eng.step.fits, eng.step.fit_seconds
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_quarter = {}
+
+    def timed():
+        secs = _timed(torch, lambda: eng.run(y[GROWTH_WARM:quarter]))[1]
+        at_quarter.update(M=int(eng.carry.M),
+                          bytes=_carry_bytes(eng.carry))
+        return secs + _timed(torch, lambda: eng.run(y[quarter:]))[1]
+    secs, launches = _counted(lambda: _quiet(timed, "chip_smoke_growth.log"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    timed_n = n - GROWTH_WARM
+    fits, fit_s = eng.step.fits - fits0, eng.step.fit_seconds - fit_s0
+    M = int(eng.carry.M)
+    acc = 1.0 - _majority_error(np, eng.labels(), z) / n
+    sums = (float(eng.carry.q_sel_sum), float(eng.carry.qlat_sel_sum))
+    same_bytes = _carry_bytes(eng.carry) == at_quarter["bytes"]
+    _say("growth", f"K {GROWTH_K} slots, T {y.shape[1]}, float32, est "
+         f"{GROWTH_EST}, chunk {GROWTH_CHUNK}, {n} beats of "
+         f"{GROWTH_STREAM['n_clusters']} morphologies (one every "
+         f"{GROWTH_STREAM['interval']}): first {GROWTH_WARM} untimed in "
+         f"{secs0:.2f} s; {timed_n} beats in {secs:.3f} s: "
+         f"{timed_n / secs:.2f} beats/s, "
+         f"{1e3 * (secs - fit_s) / timed_n:.2f} ms per steady beat (the "
+         f"kernel fits' seconds taken out); M {at_quarter['M']} at the "
+         f"quarter, {M} at the end, births {sum(eng.births)} "
+         f"({sum(eng.births[GROWTH_WARM:])} timed), kernel fits {fits} "
+         f"timed in {fit_s:.2f} s ({fit_s / max(fits, 1):.2f} s a fit); "
+         f"launches {launches} ({launches['spd_solve'] / timed_n:.3f} "
+         f"kernel B a beat); peak memory {peak / 2**30:.3f} GiB; carry "
+         f"{at_quarter['bytes']} bytes at the quarter, equal at the end "
+         f"{same_bytes}; majority-label accuracy {acc:.4f}; q_sel_sum "
+         f"{sums[0]:.6f}, qlat_sel_sum {sums[1]:.6f}")
+    if not M > at_quarter["M"] >= 1:
+        raise AssertionError(f"no birth after the first quarter "
+                             f"({at_quarter['M']} -> {M})")
+    if not GROWTH_STREAM["n_clusters"] - 2 <= M <= GROWTH_K:
+        raise AssertionError(f"M {M} outside [n_clusters - 2, K]")
+    if not same_bytes:
+        raise AssertionError("the carry grew after the quarter")
+    if acc < GROWTH_MIN_ACC:
+        raise AssertionError(f"majority accuracy {acc} < {GROWTH_MIN_ACC}")
+    if not all(math.isfinite(v) for v in sums):
+        raise AssertionError(f"non-finite accounting {sums}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
 
 
 def _same_sweeps(np, a, b):
@@ -1144,9 +1238,8 @@ def _record_elbos(torch, out):
 def phase_records(torch, np):
     from hdpgpc_torch.models import streaming
     from hdpgpc_torch.ops.kernels import fused_rbf_gram
-    from hdpgpc_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from hdpgpc_torch.ops.spd_solve import spd_solve
     from hdpgpc_torch.parallel import records
-    from hdpgpc_torch.utils.kernel_timing import spd_solve_bound
     R, N, K, T = RECORDS_R, RECORDS_N, RECORDS_K, 90
     dev, dt = torch.device("cuda"), torch.float32
     t0 = time.perf_counter()
@@ -1189,6 +1282,7 @@ def phase_records(torch, np):
     idle_s = "not measured" if idle is None else f"{idle:.3f}"
     s_step = sum(secs) / len(secs)
     tt = peak / (min(G, R) * K * N * T * T * 4)
+    tt_none = _records_tt_no_limit(torch, Y, resp, states, rho, rp, G, K, T)
     _say("records", f"R {R} records x N {N} beats x K {K}, T {T}, float32, "
          f"est_limit {SLICE_EST_LIMIT}, hdp_update: data {secs_data:.2f} s; "
          f"first step {secs0:.2f} s "
@@ -1202,7 +1296,9 @@ def phase_records(torch, np):
          f"kernel A "
          f"{gram_launches} launch(es) in init_record_states; peak "
          f"{peak / 2**30:.3f} GiB above the inputs ({tt:.2f} (T, T) a "
-         f"cluster and slot of a group); ELBO {elbo:.6f}, sum of the "
+         f"cluster and slot of a group; at est_limit None, one group over "
+         f"the first {RECORDS_NO_LIMIT_BEATS} beats: {tt_none:.2f}); ELBO "
+         f"{elbo:.6f}, sum of the "
          f"per-record ELBOs rel diff {rel:.3e}, q finite {q_ok}; a "
          f"one-group step over {W} beats profiled {wall:.3f} s, idle "
          f"share {idle_s}")
@@ -1214,28 +1310,56 @@ def phase_records(torch, np):
         raise AssertionError(f"a kernel was not launched: {launches}")
     # kernel B at the step's shapes: a group's (4 G K, 90, 90) and all
     # R records' (4 R K, 90, 90)
-    rec = {}
-    for n in sorted({4 * min(G, R) * K, 4 * R * K}):
-        spd_h, rhs_h = _spd_inputs(np, n, T, n, 5.0)
-        spd = torch.as_tensor(spd_h, dtype=dt, device=dev)
-        rhs = torch.as_tensor(rhs_h, dtype=dt, device=dev)
-        X = spd_solve(spd, rhs)
-        Xp = spd_solve_plain(spd, rhs)
-        X64 = spd_solve_plain(spd.double(), rhs.double())
-        torch.cuda.synchronize()
-        err = float(((X.double() - X64).abs() / (X64.abs() + 1e-3)).max())
-        dkp = float((X - Xp).abs().max())
-        t = _timings(lambda: spd_solve(spd, rhs),
-                     lambda: spd_solve_plain(spd, rhs),
-                     lambda: torch.linalg.solve(spd, rhs),
-                     spd_solve_bound(n, T, T, dt))
-        _say("records", f"spd_solve ({n},{T},{T}) float32: kernel err "
-             f"{err:.3e} (bar {SOLVE_BAR['float32']:.0e}), max|kernel-"
-             f"plain| {dkp:.3e}; " + _fmt_times(t))
-        if not err < SOLVE_BAR["float32"]:
-            raise AssertionError(f"spd_solve n={n} err {err}")
-        rec[f"{n}x{T}x{T}"] = {"float32": dict(max_abs_err=dkp, **t)}
+    rec = {f"{n}x{T}x{T}": {"float32": _time_solve(torch, np, "records", n,
+                                                   T, dt)}
+           for n in sorted({4 * min(G, R) * K, 4 * R * K})}
     return launches, rec
+
+
+def _time_solve(torch, np, phase, n, T, dt):
+    """Kernel B at (n, T, T) x R = T in ``dt`` against a float64 truth
+    (SOLVE_BAR) and its plain version, timed: its record."""
+    from hdpgpc_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from hdpgpc_torch.utils.kernel_timing import spd_solve_bound
+    dname = str(dt).replace("torch.", "")
+    spd_h, rhs_h = _spd_inputs(np, n, T, n, 5.0)
+    spd = torch.as_tensor(spd_h, dtype=dt, device="cuda")
+    rhs = torch.as_tensor(rhs_h, dtype=dt, device="cuda")
+    X = spd_solve(spd, rhs)
+    Xp = spd_solve_plain(spd, rhs)
+    X64 = spd_solve_plain(spd.double(), rhs.double())
+    torch.cuda.synchronize()
+    err = float(((X.double() - X64).abs() / (X64.abs() + 1e-3)).max())
+    dkp = float((X - Xp).abs().max())
+    t = _timings(lambda: spd_solve(spd, rhs),
+                 lambda: spd_solve_plain(spd, rhs),
+                 lambda: torch.linalg.solve(spd, rhs),
+                 spd_solve_bound(n, T, T, dt))
+    _say(phase, f"spd_solve ({n},{T},{T}) {dname}: kernel err {err:.3e} "
+         f"(bar {SOLVE_BAR[dname]:.0e}), max|kernel-plain| {dkp:.3e}; "
+         + _fmt_times(t))
+    if not err < SOLVE_BAR[dname]:
+        raise AssertionError(f"spd_solve ({n}, {T}) {dname} err {err}")
+    return dict(max_abs_err=dkp, **t)
+
+
+def _records_tt_no_limit(torch, Y, resp, states, rho, rp, G, K, T):
+    """The peak (T, T) count a cluster and slot of a one-group step at
+    est_limit None (every slot its own factors) over the first
+    RECORDS_NO_LIMIT_BEATS beats."""
+    from hdpgpc_torch.parallel import records
+    dev, W = Y.device, RECORDS_NO_LIMIT_BEATS
+    step = records.build_sharded_vi_step(T, K, hdp_update=True, device=dev,
+                                         records_per_group=G, **RECORDS_HDP)
+    args = (Y[:G, :W], resp[:G, :W], _records_head(states, G), rho[:G],
+            rp[:G, :W])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    return peak / (G * K * W * T * T * Y.element_size())
 
 
 def _records_head(states, G):
@@ -1313,10 +1437,13 @@ def phase_records_parity(torch, np):
          f"in {secs:.3f} s, finite outputs of the expected shapes {ok}")
     if not ok:
         raise AssertionError("entry() gave wrong outputs")
-    return lc_all
+    # kernel B at the parity step's (4 R K, 90, 90) in float64
+    n = 4 * R * K
+    return lc_all, {f"{n}x{T}x{T}": {"float64": _time_solve(
+        torch, np, "records_parity", n, T, torch.float64)}}
 
 
-TIMING_BEATS = 500
+TIMING_BEATS = 300
 TIMING_KEYS = {"refit_batch", "refit_one", "seed_score", "fb", "kernel_fit",
                "q_elbo", "hdp_update", "warp"}
 
@@ -1378,7 +1505,7 @@ def main(argv=None):
     phase_device(torch)
     # launches stay null ("not measured") where their phase did not run
     rec = {}
-    launches = {k: {p: None for p in ("offline", "online", "warp",
+    launches = {k: {p: None for p in ("offline", "online", "growth", "warp",
                                       "warp_parity", "online_warp", "ml_em",
                                       "reload", "checkpoint", "stream",
                                       "inducing", "records",
@@ -1398,7 +1525,7 @@ def main(argv=None):
             launches[k]["online"] = v
     if "online_parity" in phases:
         phase_online_parity(torch, np)
-    for name, fn in (("warp", phase_warp), ("warp_parity", phase_warp_parity),
+    for name, fn in (("growth", phase_growth), ("warp", phase_warp), ("warp_parity", phase_warp_parity),
                      ("online_warp", phase_online_warp),
                      ("ml_em", phase_ml_em)):
         if name in phases:
@@ -1433,7 +1560,9 @@ def main(argv=None):
         for k, v in lc.items():
             launches[k]["records"] = v
     if "records_parity" in phases:
-        for k, v in phase_records_parity(torch, np).items():
+        lc, parity_shapes = phase_records_parity(torch, np)
+        stream_shapes.update(parity_shapes)
+        for k, v in lc.items():
             launches[k]["records_parity"] = v
     if "timing" in phases:
         for k, v in phase_timing(torch, np).items():
@@ -1458,7 +1587,10 @@ def main(argv=None):
                 f"{n}x{T}x{T}": {d: rec[f"spd_solve_{n}x{T}x{T}_{d}"]
                                  for d in ("float32", "float64")}
                 for (n, T) in SOLVE_TIMED if (n, T) != (16, 90)}
-            entry["shapes"].update(stream_shapes)
+            # a shape timed in two phases keeps each phase's dtypes
+            for key, by_dtype in stream_shapes.items():
+                entry["shapes"][key] = {**by_dtype,
+                                        **entry["shapes"].get(key, {})}
         else:
             entry["shapes"] = {
                 f"{T}x{D}": {d: rec[f"rbf_gram_{T}x{D}_{d}"]

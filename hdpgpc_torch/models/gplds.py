@@ -55,6 +55,9 @@ from hdpgpc_torch.ops.scan import associative_scan
 from hdpgpc_torch.ops.spd_solve import spd_solve
 
 LOG2PI = linalg.LOG2PI
+# beats (emission scores) and member slots (latent scores) a scoring
+# chunk: hdpgpc_tpu's CHUNK and LCH
+SCORE_CHUNK = 256
 
 
 class ClusterState(NamedTuple):
@@ -742,21 +745,23 @@ def build_refit(T: int, est_limit: Optional[int] = None,
         L_slots = linalg.chol(Sd + (1e-8 * dm)[..., None, None] * eye)
         fac_idx = torch.where(first_member, De,
                               torch.clamp(gather_slot, max=De - 1))
-        diff = (Y - _take(score_mean, gather_slot))[..., None]
-        sol = linalg.solve_lower(_take(L_slots, fac_idx), diff)
-        q = -0.5 * torch.sum(sol[..., 0] ** 2, -1) - 0.5 * T * LOG2PI
+        # in chunks of SCORE_CHUNK beats, so the gathered factors stay
+        # (J, SCORE_CHUNK, T, T) whatever N (hdpgpc_tpu's lax.map)
+        q = torch.empty((Jn, N), dtype=dtype, device=dev)
+        for c0 in range(0, N, SCORE_CHUNK):
+            c1 = min(c0 + SCORE_CHUNK, N)
+            diff = (Y[:, c0:c1]
+                    - _take(score_mean, gather_slot[:, c0:c1]))[..., None]
+            sol = linalg.solve_lower(_take(L_slots, fac_idx[:, c0:c1]),
+                                     diff)
+            q[:, c0:c1] = -0.5 * torch.sum(sol[..., 0] ** 2, -1) \
+                - 0.5 * T * LOG2PI
         q = _w(n_members > 0, q, torch.zeros_like(q))
 
         # ---- latent scores (compute_q_lat_all parity), per slot then
         # scattered back to time ----
         member_s = m_s > 0.5
         if dynamic:
-            slots = torch.arange(Bs, device=dev)
-            prev_slot = torch.clamp(slots - 1, 0, Bs - 1)
-            is_first = (slots == 0)[None, :, None, None]
-            lat_prev = torch.where(is_first, f_sm, f_sm[:, prev_slot])
-            cov_prev = torch.where(is_first, P_sm, P_sm[:, prev_slot])
-            A_j = torch.where(is_first, A_f[:, None], A_seq)
             # slot 0 uses the FINAL (A_f, G_f); slots past the limit the
             # frozen pair: only De distinct (A, G)
             Gd = torch.cat([G_f[:, None], G_seq[:, 1:De]], 1)
@@ -765,14 +770,27 @@ def build_refit(T: int, est_limit: Optional[int] = None,
             gd = _dmean(Gd, torch.finfo(dtype).eps)
             L2d = linalg.chol(Gd + (1e-8 * gd)[..., None, None] * eye)
             GAd = linalg.cho_solve(L2d, Ad)
-            idx_lat = torch.where(slots == 0, 0,
-                                  torch.clamp(slots, max=De - 1))
-            resid = f_sm - A_j @ lat_prev
-            s2 = linalg.solve_lower(L2d[:, idx_lat], resid)
-            mh = torch.sum(s2[..., 0] ** 2, -1)
-            tr = torch.sum(Ad[:, idx_lat] * (GAd[:, idx_lat] @ cov_prev),
-                           dim=(-2, -1))
-            q_lat_slot = -0.5 * (mh + tr) - 0.5 * T * LOG2PI
+            # in chunks of SCORE_CHUNK slots: each gathers its previous
+            # states and covariances, A and the factors
+            q_lat_slot = torch.empty((Jn, Bs), dtype=dtype, device=dev)
+            for c0 in range(0, Bs, SCORE_CHUNK):
+                c1 = min(c0 + SCORE_CHUNK, Bs)
+                slots = torch.arange(c0, c1, device=dev)
+                prev_slot = torch.clamp(slots - 1, min=0)
+                is_first = (slots == 0)[None, :, None, None]
+                f_cur = f_sm[:, c0:c1]
+                lat_prev = torch.where(is_first, f_cur, f_sm[:, prev_slot])
+                cov_prev = torch.where(is_first, P_sm[:, c0:c1],
+                                       P_sm[:, prev_slot])
+                A_j = torch.where(is_first, A_f[:, None], A_seq[:, c0:c1])
+                idx_lat = torch.where(slots == 0, 0,
+                                      torch.clamp(slots, max=De - 1))
+                s2 = linalg.solve_lower(L2d[:, idx_lat],
+                                        f_cur - A_j @ lat_prev)
+                mh = torch.sum(s2[..., 0] ** 2, -1)
+                tr = torch.sum(Ad[:, idx_lat] * (GAd[:, idx_lat] @ cov_prev),
+                               dim=(-2, -1))
+                q_lat_slot[:, c0:c1] = -0.5 * (mh + tr) - 0.5 * T * LOG2PI
             q_lat_slot = torch.where(member_s & (n_members > 0)[:, None],
                                      q_lat_slot,
                                      torch.zeros_like(q_lat_slot))

@@ -19,7 +19,9 @@ through ONE batched ``make_forward_step``, so kernel B solves one
 (4K, T, T) stack for them; the birth candidate adds a (2, T, T) stack
 and the commit a (4, T, T) one. A first member's kernel fit is a host
 branch (one device read per beat, ``need_fit``), and its Gram is written
-by kernel A (``gplds.apply_kernel_fit``).
+by kernel A (``gplds.apply_kernel_fit``); the step counts its fits and
+their seconds, synchronised on the card (``step.fits``,
+``step.fit_seconds``).
 
 With chunk=1 the rho/omega cadence is the reference's (refined between
 every two beats); larger chunks amortise the L-BFGS over many beats
@@ -33,6 +35,7 @@ configurations use HDPGPC.include_sample_fast.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -249,7 +252,12 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
         need_fit = ~carry.fitted.index_select(0, slot1) \
             & (carry.n.index_select(0, slot1) == 0)
         if bool(need_fit):
+            t_fit = time.perf_counter()
             src = fit(src, y)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step.fits += 1
+            step.fit_seconds += time.perf_counter() - t_fit
         committed = _append_state(src, y, fwd_commit)
         lds_new = gplds.lds_param_elbo(committed, fd).to(HDT)
 
@@ -321,6 +329,7 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
         return new_carry, StepOut(uid=uid_chosen, slot=prev3,
                                   birth=do_birth, M=M2)
 
+    step.fits, step.fit_seconds = 0, 0.0
     return step
 
 

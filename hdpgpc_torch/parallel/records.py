@@ -37,20 +37,23 @@ from hdpgpc_torch.models.streaming import free_memory
 from hdpgpc_torch.ops import hmm as hmm_ops
 from hdpgpc_torch.ops.kernels import KernelParams
 
-# The batched refit of one record holds, at its peak (the latent
-# scoring at the end of models/gplds.py build_refit), REFIT_LIVE_TT
-# (T, T) matrices per cluster and member slot: the forward pass's
-# filtered covariances and per-slot (A, Gamma, Sigma), the smoothed
-# covariances kept for the backward pass, the emission scoring's
-# symmetrised Sigmas and their factors, and the latent scoring's
-# previous covariances, per-slot A, Gamma, their factors and products,
-# and the gathers of each. Without a bucket every beat is a slot of
-# every cluster, so a record needs REFIT_LIVE_TT K N T^2 elements (at
-# K = 4, N = 2272, T = 90 in float32: 5.0 GB); a group of records is
-# sized to fill GROUP_MEMORY_FRACTION of the free memory with them.
-# Measured on an H100 (chip_smoke.py records phase): 16.2 at
-# est_limit None and 1000.
-REFIT_LIVE_TT = 17
+# The batched refit of one record holds, at its peak, REFIT_LIVE_TT
+# (T, T) matrices per cluster and member slot: what the forward and
+# backward passes keep (the filtered and smoothed covariances and the
+# per-slot A, Gamma, Sigma: 5; past an estimation limit E also the
+# sequential head's and the parallel tail's pieces beside their
+# concatenations, ~3.3 at E = 1000, N = 2272), the scoring's factors
+# of the distinct slots (the symmetrised Sigmas and their factors,
+# Gamma, A, Gamma's factors and Gamma^-1 A: six stacks of
+# min(N, E + 1) slots) and a factorisation's temporaries. The scoring
+# gathers per chunk of gplds.SCORE_CHUNK beats or slots, whatever N.
+# Without a bucket every beat is a slot of every cluster, so a record
+# needs REFIT_LIVE_TT K N T^2 elements (at K = 4, N = 2272, T = 90 in
+# float32: 4.1 GB); a group of records is sized to fill
+# GROUP_MEMORY_FRACTION of the free memory with them. Measured on an
+# H100 (chip_smoke.py records phase): 11.98 at est_limit 1000, 13.11
+# at est_limit None (16.2 at both before the scoring was chunked).
+REFIT_LIVE_TT = 14
 GROUP_MEMORY_FRACTION = 0.8
 
 

@@ -2,7 +2,8 @@
 is no MIT-BIH data here, so each falls back to synthetic data and says
 so): examples/torch_run_{offline,online,reload_classify,ocean,
 all_records}.py, tools/torch_validate_f32.py and
-tools/torch_profile_offline.py, float32 with the kernel fits capped.
+tools/torch_profile_offline.py, float32 with the kernel fits capped;
+examples/torch_run_stress_stream.py --grow on a growth stream.
 The all-records driver's concurrent mode gives each record the
 sequential mode's (M, error)."""
 
@@ -103,3 +104,24 @@ def test_profile_offline_tool(monkeypatch):
                   ["16", "--device", "cpu"])
     assert "[time] total tracked" in out and "s/sweep" in out
     assert set(m.timings) and np.isfinite(sum(m.timings.values()))
+
+
+def test_stress_stream_driver_grow(tmp_path):
+    """examples/torch_run_stress_stream.py --grow: the engine's chunk is
+    the example's min(--chunk, 1024), the progress and result lines go to
+    --log, the result to --json."""
+    log, res_path = tmp_path / "grow.jsonl", tmp_path / "grow.json"
+    res, out = _run("examples/torch_run_stress_stream.py",
+                    ["--grow", "--beats", "48", "--k", "3", "--t", "24",
+                     "--chunk", "4096", "--log", str(log), "--json",
+                     str(res_path)] + QUICK)
+    assert out.splitlines()[0] == "cpu"
+    assert "GROWTH STRESS DONE: 48 beats, K_slots=3" in out
+    assert res["mode"] == "grow" and res["ok"] and res["chunk"] == 1024
+    assert res["beats"] == 48 and 1 <= res["clusters_born"] <= 3
+    assert res["kernel_fits"] >= 1 and res["peak_device_bytes"] is None
+    assert 0.0 < res["accuracy"] <= 1.0
+    lines = [json.loads(ln) for ln in log.read_text().splitlines()]
+    assert lines[0]["beats"] == 48 and lines[-1]["event"] == "done"
+    with open(res_path) as f:
+        assert json.load(f)["clusters_born"] == res["clusters_born"]

@@ -2,6 +2,7 @@
 give the same outputs as hdpgpc_tpu's, and the port imports no JAX."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -19,18 +20,24 @@ from hdpgpc_tpu.data import priors as jpri
 from hdpgpc_tpu.ops import stick_breaking as jsb
 from hdpgpc_tpu.utils import eval as jev
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def test_port_imports_no_jax():
-    code = ("import sys, hdpgpc_torch, hdpgpc_torch.models.hdpgpc, "
+    code = ("import runpy, sys, hdpgpc_torch, hdpgpc_torch.models.hdpgpc, "
             "hdpgpc_torch.convert, hdpgpc_torch.models.stream_online, "
             "hdpgpc_torch.ops.sb_device, hdpgpc_torch.warp.monotone, "
             "hdpgpc_torch.models.ml_em, hdpgpc_torch.models.streaming, "
-            "hdpgpc_torch.models.kernel_fit, hdpgpc_torch.ops.kalman; "
+            "hdpgpc_torch.models.kernel_fit, hdpgpc_torch.ops.kalman, "
+            "hdpgpc_torch.parallel.records, hdpgpc_torch.entry; "
+            "[runpy.run_path(p) for p in ('chip_smoke.py', "
+            "'examples/torch_run_stress_stream.py', "
+            "'tools/torch_stream_classify.py')]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'hdpgpc_tpu'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True)
+                         text=True, cwd=ROOT)
     assert out.returncode == 0, out.stdout + out.stderr
 
 
