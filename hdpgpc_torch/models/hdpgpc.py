@@ -33,6 +33,18 @@ JAX arrays and hdpgpc_tpu classes).
 With ``HDPGPC_TIMING=1`` in the environment a model times its phases
 (``timings``, ``counts``, ``print_timings``; see ``_install_timers``);
 ``warmup_programs(N)`` runs the refit lattice once up front.
+
+While the recorder of utils/metrics is on (``metrics.enable()``), the
+offline sweep records spans: a ``sweep.refill`` each pass of
+``include_batch``'s loop, then, unless the refill ends the loop, a
+``sweep`` closed at its SweepMetrics record (a batch of one beat stops
+before its ELBO and records none) around ``sweep.first`` (with
+``first.cold_init``, ``first.q_simple``, ``first.realloc_trial``,
+``first.birth_rank`` and a ``first.birth_trial`` a candidate tried),
+``sweep.q_all`` and ``sweep.elbo``; a ``refit[J]`` a batched refit
+program call of J jobs; and the timed phases under their timer keys.
+Its counters: ``refit.jobs`` (jobs that reach the refit program past
+the memo), ``birth.trials`` and ``birth.accepted``.
 """
 
 from __future__ import annotations
@@ -63,7 +75,7 @@ from hdpgpc_torch.ops import hmm as hmm_ops
 from hdpgpc_torch.ops import linalg
 from hdpgpc_torch.ops import stick_breaking as sb
 from hdpgpc_torch.ops.kernels import KernelParams
-from hdpgpc_torch.utils.metrics import MetricsLog, SweepMetrics
+from hdpgpc_torch.utils.metrics import MetricsLog, SweepMetrics, count, span
 from hdpgpc_torch.warp.monotone import (build_batch_warp, make_warp_prior,
                                         warp_prior_score)
 
@@ -514,14 +526,20 @@ class HDPGPC:
                                  cl.fitted, cl.members,
                                  state_key=cl.state_key)
                     prepped.append(self._maybe_kernel_fit(c2, ld, Y, rc))
-                states = gplds.stack_states([c.state for c in prepped])
-                Yb = torch.stack([self._dev_Y(jobs[i][2]) for i in sub_idx])
-                Rb = torch.as_tensor(np.stack([jobs[i][3] for i in sub_idx]),
-                                     dtype=self.dtype, device=self.device)
-                res = self._refit_prog(update_params=update_params,
-                                       bucket=bucket)(Yb, Rb, states)
-                qs, qls, snrs, ldss = (t.cpu().numpy() for t in (
-                    res.q, res.q_lat, res.snr, res.lds))
+                # one span a batched program call, named by its jobs:
+                # inputs stacked, the program, its scores read back
+                count("refit.jobs", len(sub_idx))
+                with span("refit", len(sub_idx)):
+                    states = gplds.stack_states([c.state for c in prepped])
+                    Yb = torch.stack([self._dev_Y(jobs[i][2])
+                                      for i in sub_idx])
+                    Rb = torch.as_tensor(
+                        np.stack([jobs[i][3] for i in sub_idx]),
+                        dtype=self.dtype, device=self.device)
+                    res = self._refit_prog(update_params=update_params,
+                                           bucket=bucket)(Yb, Rb, states)
+                    qs, qls, snrs, ldss = (t.cpu().numpy() for t in (
+                        res.q, res.q_lat, res.snr, res.lds))
                 # use_snr=False: the reference's compute_snr returns ones
                 if not self.cfg.use_snr:
                     snrs = np.ones_like(snrs)
@@ -1199,37 +1217,45 @@ class HDPGPC:
         reallocate = False
         t_sweep = time.time()
         while True:
-            resp, respPair, end = self._refill(resp, respPair)
+            # the refill decides whether the loop goes on, so it precedes
+            # its sweep's span: the pass that ends here records no sweep
+            with span("sweep.refill"):
+                resp, respPair, end = self._refill(resp, respPair)
             M = self.M
             if resp.shape[1] == 1:
                 self._hdp_global_update(resp, respPair, M, n_iters=2)
             if end:
                 break
-            (resp, respPair, q, q_lat, snr, y_w,
-             reallocate) = self._vlt_batch(M, x, y, y_w, resp, respPair,
-                                           q, q_lat, snr, reallocate)
-            if resp.shape[1] > M:
-                self.M = M + 1
-                M = self.M
-            elif resp.shape[1] < M:
-                # Emergency group removal shrank the bank mid-sweep
-                # (GPI_HDP.py:1451-1460 trims gpmodels but never resyncs
-                # self.M — a latent reference crash in _calcThetaFull on
-                # the next global update). Resync to the live count.
-                self.M = resp.shape[1]
-                M = self.M
-            self._hdp_global_update(resp, respPair, M, n_iters=2)
-            if self.T_count > 1:
-                elbo_ = float(hmm_ops.entropy_terms(
-                    torch.as_tensor(resp, dtype=self.dtype,
-                                    device=self.device),
-                    torch.as_tensor(respPair, dtype=self.dtype,
-                                    device=self.device)))
-                print(f"\n-------End Lower Bound Iteration {iteration}-------")
-                q_obs, elbo_lin = self.compute_q_elbo(
-                    resp, respPair, self.weight_mean(q),
-                    self.weight_mean(q_lat), self.clusters, self.M,
-                    snr="saved", post=False, verb=True)
+            with span("sweep"):
+                (resp, respPair, q, q_lat, snr, y_w,
+                 reallocate) = self._vlt_batch(M, x, y, y_w, resp, respPair,
+                                               q, q_lat, snr, reallocate)
+                if resp.shape[1] > M:
+                    self.M = M + 1
+                    M = self.M
+                elif resp.shape[1] < M:
+                    # Emergency group removal shrank the bank mid-sweep
+                    # (GPI_HDP.py:1451-1460 trims gpmodels but never
+                    # resyncs self.M — a latent reference crash in
+                    # _calcThetaFull on the next global update). Resync
+                    # to the live count.
+                    self.M = resp.shape[1]
+                    M = self.M
+                self._hdp_global_update(resp, respPair, M, n_iters=2)
+                if self.T_count <= 1:
+                    break
+                with span("sweep.elbo"):
+                    elbo_ = float(hmm_ops.entropy_terms(
+                        torch.as_tensor(resp, dtype=self.dtype,
+                                        device=self.device),
+                        torch.as_tensor(respPair, dtype=self.dtype,
+                                        device=self.device)))
+                    print(f"\n-------End Lower Bound Iteration "
+                          f"{iteration}-------")
+                    q_obs, elbo_lin = self.compute_q_elbo(
+                        resp, respPair, self.weight_mean(q),
+                        self.weight_mean(q_lat), self.clusters, self.M,
+                        snr="saved", post=False, verb=True)
                 elbo_ = elbo_ + elbo_lin + q_obs
                 print("ELBO + Nonlinear: " + str(elbo_))
                 self.metrics.append(**SweepMetrics(
@@ -1238,27 +1264,25 @@ class HDPGPC:
                     n_clusters=self.M,
                     resp_counts=resp.sum(axis=0).astype(int).tolist(),
                     seconds=time.time() - t_sweep).to_dict())
-                t_sweep = time.time()
-                iteration += 1
-                print(f"\n-------Start lower Bound Iteration {iteration}-------")
-                self.train_elbo.append(elbo_)
-                self.resp_assigned.append(np.argmax(resp, axis=1))
-                self.q_last, self.q_lat_last = q, q_lat
-                self.resp_last, self.respPair_last = resp, respPair
-                self.elbo_last = elbo_
-                if it_limit is not None and iteration >= it_limit:
-                    break
-                if self.M == self.cfg.max_models:
-                    break
-                resp_group = resp.sum(axis=0)
-                repeated = (len(self.resp_assigned) > 1
-                            and self.resp_assigned[-2].shape[0]
-                            == self.resp_assigned[-1].shape[0]
-                            and np.all(self.resp_assigned[-2]
-                                       == self.resp_assigned[-1]))
-                if np.flatnonzero(resp_group == 0.0).shape[0] > 1 or repeated:
-                    break
-            else:
+            t_sweep = time.time()
+            iteration += 1
+            print(f"\n-------Start lower Bound Iteration {iteration}-------")
+            self.train_elbo.append(elbo_)
+            self.resp_assigned.append(np.argmax(resp, axis=1))
+            self.q_last, self.q_lat_last = q, q_lat
+            self.resp_last, self.respPair_last = resp, respPair
+            self.elbo_last = elbo_
+            if it_limit is not None and iteration >= it_limit:
+                break
+            if self.M == self.cfg.max_models:
+                break
+            resp_group = resp.sum(axis=0)
+            repeated = (len(self.resp_assigned) > 1
+                        and self.resp_assigned[-2].shape[0]
+                        == self.resp_assigned[-1].shape[0]
+                        and np.all(self.resp_assigned[-2]
+                                   == self.resp_assigned[-1]))
+            if np.flatnonzero(resp_group == 0.0).shape[0] > 1 or repeated:
                 break
         if self.f32_fragile:
             msg = (f"float32 speed mode is dtype-FRAGILE on this "
@@ -1379,10 +1403,11 @@ class HDPGPC:
         first_cond = (per_group.shape[0] == 1 or per_group[-2] >= 1.0
                       or not self.clusters[0][0].fitted)
         if first_cond:
-            (resp, respPair, q, q_lat, snr, y_w,
-             reallocate) = self._estimate_q_first(
-                M, x, y, y_w, resp, respPair, q, q_lat, snr,
-                startPi, transPi, reallocate)
+            with span("sweep.first"):
+                (resp, respPair, q, q_lat, snr, y_w,
+                 reallocate) = self._estimate_q_first(
+                    M, x, y, y_w, resp, respPair, q, q_lat, snr,
+                    startPi, transPi, reallocate)
             post = resp.shape[1] > self.M
             q_bas, elbo_bas = self.compute_q_elbo(
                 resp, respPair, self.weight_mean(q), self.weight_mean(q_lat),
@@ -1398,10 +1423,11 @@ class HDPGPC:
         if not reallocate:
             while True:
                 M = resp.shape[1]
-                (resp, respPair, q, q_lat, snr, y_w,
-                 accepted_clusters) = self._estimate_q_all(
-                    M, x, y, y_w, resp, respPair, q, q_lat, snr,
-                    startPi, transPi, q_def, elbo_def)
+                with span("sweep.q_all"):
+                    (resp, respPair, q, q_lat, snr, y_w,
+                     accepted_clusters) = self._estimate_q_all(
+                        M, x, y, y_w, resp, respPair, q, q_lat, snr,
+                        startPi, transPi, q_def, elbo_def)
                 self.clusters = accepted_clusters
                 post = resp.shape[1] > self.M
                 q_post, elbo_post = self.compute_q_elbo(
@@ -1557,15 +1583,16 @@ class HDPGPC:
 
         # ---- cold init: build cluster 0 from the full batch ----
         if np.mean(q_) == 0.0:
-            snr_ = np.zeros((N, M, L))
-            for ld in range(L):
-                cl = self._new_cluster()
-                q_col, ql_col, s_col, cl = self._full_refit(
-                    cl, ld, y_w[:, :, ld, 0], resp[:, 0])
-                q_[:, 0, ld] = q_col + liks[:, 0, ld]
-                q_lat_[:, 0, ld] = ql_col
-                snr_[:, 0, ld] = s_col
-                self.clusters[ld][0] = cl
+            with span("first.cold_init"):
+                snr_ = np.zeros((N, M, L))
+                for ld in range(L):
+                    cl = self._new_cluster()
+                    q_col, ql_col, s_col, cl = self._full_refit(
+                        cl, ld, y_w[:, :, ld, 0], resp[:, 0])
+                    q_[:, 0, ld] = q_col + liks[:, 0, ld]
+                    q_lat_[:, 0, ld] = ql_col
+                    snr_[:, 0, ld] = s_col
+                    self.clusters[ld][0] = cl
         reallocate = False
 
         # member sets (fall back to resp columns for empty clusters)
@@ -1579,186 +1606,193 @@ class HDPGPC:
 
         # ---- q_simple: score each cluster seeded with its representative
         # (batched across all (lead, cluster) pairs in one vmapped call)
-        q_simple = q_.copy()
-        seed_jobs, seed_slots = [], []
-        for ld in range(L):
-            for m in range(M):
-                if indexes_[m].size > 0:
-                    rc = np.zeros(N)
-                    rc[int(f_ind_old[m])] = 1.0
-                    cl = self.clusters[ld][m]
-                    st = gplds.reinit_cluster_state(
-                        cl.state, float(self.cfg.gp.free_deg_mniw))
-                    seed_jobs.append((Cluster(st, cl.fitted, cl.members,
-                                              state_key=cl.state_key),
-                                      ld, y_w[:, :, ld, m], rc))
-                    seed_slots.append((ld, m))
-        for (ld, m), (qs, _ql, _snr, _cl) in zip(
-                seed_slots,
-                self._full_refit_batch(seed_jobs, update_params=False)):
-            q_simple[:, m, ld] = qs + liks[:, m, ld]
+        with span("first.q_simple"):
+            q_simple = q_.copy()
+            seed_jobs, seed_slots = [], []
+            for ld in range(L):
+                for m in range(M):
+                    if indexes_[m].size > 0:
+                        rc = np.zeros(N)
+                        rc[int(f_ind_old[m])] = 1.0
+                        cl = self.clusters[ld][m]
+                        st = gplds.reinit_cluster_state(
+                            cl.state, float(self.cfg.gp.free_deg_mniw))
+                        seed_jobs.append((Cluster(st, cl.fitted, cl.members,
+                                                  state_key=cl.state_key),
+                                          ld, y_w[:, :, ld, m], rc))
+                        seed_slots.append((ld, m))
+            for (ld, m), (qs, _ql, _snr, _cl) in zip(
+                    seed_slots,
+                    self._full_refit_batch(seed_jobs, update_params=False)):
+                q_simple[:, m, ld] = qs + liks[:, m, ld]
 
         snr_aux = snr_.copy()
         if M > 1:
             # ---- reallocation trial ----
-            q_aux = q_simple.copy()
-            if resp.sum(axis=0)[-1] == 0:
-                q_aux[:, -1, :] = np.min(q_aux) * 2.0
-                snr_aux[:, -1, :] = np.min(snr_aux) * 2.0
-            q_norm = self.weight_mean(q_aux, snr_aux)
-            q_norm = q_norm - q_norm.max(axis=1, keepdims=True)
-            resp_temp, respPair_temp = self._fb_hard(q_norm, startPi, transPi)
-            reorder = np.argsort(-resp_temp.sum(axis=0), kind="stable")
-            resp_temp = resp_temp[:, reorder].copy()
+            with span("first.realloc_trial"):
+                q_aux = q_simple.copy()
+                if resp.sum(axis=0)[-1] == 0:
+                    q_aux[:, -1, :] = np.min(q_aux) * 2.0
+                    snr_aux[:, -1, :] = np.min(snr_aux) * 2.0
+                q_norm = self.weight_mean(q_aux, snr_aux)
+                q_norm = q_norm - q_norm.max(axis=1, keepdims=True)
+                resp_temp, respPair_temp = self._fb_hard(q_norm, startPi,
+                                                         transPi)
+                reorder = np.argsort(-resp_temp.sum(axis=0), kind="stable")
+                resp_temp = resp_temp[:, reorder].copy()
 
-            q = q_.copy()
-            q_lat = q_lat_.copy()
-            clusters_temp: List[List[Cluster]] = [
-                [None] * M for _ in range(L)]
-            jobs, slots = [], []
-            for ld in range(L):
-                for m in range(M):
-                    if not np.array_equal(resp[:, reorder[m]],
-                                          resp_temp[:, m]):
-                        jobs.append((self.clusters[ld][reorder[m]], ld,
-                                     y_w[:, :, ld, reorder[m]],
-                                     resp_temp[:, m]))
-                        slots.append((ld, m))
-                    else:
-                        cl = self.clusters[ld][reorder[m]]
-                        q[:, m, ld] = q_[:, reorder[m], ld]
-                        snr_aux[:, m, ld] = snr_[:, reorder[m], ld]
-                        clusters_temp[ld][m] = cl
-            for (ld, m), (q_col, ql_col, s_col, cl2) in zip(
-                    slots, self._full_refit_batch(jobs)):
-                q[:, m, ld] = q_col + liks[:, reorder[m], ld]
-                q_lat[:, m, ld] = ql_col
-                snr_aux[:, m, ld] = s_col
-                clusters_temp[ld][m] = cl2
+                q = q_.copy()
+                q_lat = q_lat_.copy()
+                clusters_temp: List[List[Cluster]] = [
+                    [None] * M for _ in range(L)]
+                jobs, slots = [], []
+                for ld in range(L):
+                    for m in range(M):
+                        if not np.array_equal(resp[:, reorder[m]],
+                                              resp_temp[:, m]):
+                            jobs.append((self.clusters[ld][reorder[m]], ld,
+                                         y_w[:, :, ld, reorder[m]],
+                                         resp_temp[:, m]))
+                            slots.append((ld, m))
+                        else:
+                            cl = self.clusters[ld][reorder[m]]
+                            q[:, m, ld] = q_[:, reorder[m], ld]
+                            snr_aux[:, m, ld] = snr_[:, reorder[m], ld]
+                            clusters_temp[ld][m] = cl
+                for (ld, m), (q_col, ql_col, s_col, cl2) in zip(
+                        slots, self._full_refit_batch(jobs)):
+                    q[:, m, ld] = q_col + liks[:, reorder[m], ld]
+                    q_lat[:, m, ld] = ql_col
+                    snr_aux[:, m, ld] = s_col
+                    clusters_temp[ld][m] = cl2
 
-            q_bas_, elbo_bas_ = self.compute_q_elbo(
-                resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
-                self.weight_mean(q_lat, snr_aux), clusters_temp, M,
-                snr=snr_aux, post=False)
-            q_def__, elbo_def__ = self.compute_q_elbo(
-                resp, respPair, self.weight_mean(q_, snr_),
-                self.weight_mean(q_lat_, snr_), self.clusters, M,
-                snr=snr_, post=False)
-            i__ = 0
-            while True:
-                (resp_temp, respPair_temp, q, q_lat, snr_aux, y_w,
-                 clusters_temp) = self._estimate_q_all(
-                    M, x, y, y_w, resp_temp, respPair_temp, q, q_lat,
-                    snr_aux, startPi, transPi, q_def__, elbo_def__,
-                    clusters=clusters_temp, post=False)
-                q_post, elbo_post = self.compute_q_elbo(
+                q_bas_, elbo_bas_ = self.compute_q_elbo(
                     resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
                     self.weight_mean(q_lat, snr_aux), clusters_temp, M,
                     snr=snr_aux, post=False)
-                print("ELBO_reduction: "
-                      + str((q_post + elbo_post) - (q_bas_ + elbo_bas_)))
-                if (np.isclose(q_bas_ + elbo_bas_, q_post + elbo_post,
-                               rtol=1e-5) and i__ > 0) or i__ == 20:
-                    break
-                q_bas_, elbo_bas_ = q_post, elbo_post
-                i__ += 1
+                q_def__, elbo_def__ = self.compute_q_elbo(
+                    resp, respPair, self.weight_mean(q_, snr_),
+                    self.weight_mean(q_lat_, snr_), self.clusters, M,
+                    snr=snr_, post=False)
+                i__ = 0
+                while True:
+                    (resp_temp, respPair_temp, q, q_lat, snr_aux, y_w,
+                     clusters_temp) = self._estimate_q_all(
+                        M, x, y, y_w, resp_temp, respPair_temp, q, q_lat,
+                        snr_aux, startPi, transPi, q_def__, elbo_def__,
+                        clusters=clusters_temp, post=False)
+                    q_post, elbo_post = self.compute_q_elbo(
+                        resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
+                        self.weight_mean(q_lat, snr_aux), clusters_temp, M,
+                        snr=snr_aux, post=False)
+                    print("ELBO_reduction: "
+                          + str((q_post + elbo_post) - (q_bas_ + elbo_bas_)))
+                    if (np.isclose(q_bas_ + elbo_bas_, q_post + elbo_post,
+                                   rtol=1e-5) and i__ > 0) or i__ == 20:
+                        break
+                    q_bas_, elbo_bas_ = q_post, elbo_post
+                    i__ += 1
 
-            print(">>> Prev -------")
-            q_bas, elbo_bas = self.compute_q_elbo(
-                resp, respPair, self.weight_mean(q_, snr_),
-                self.weight_mean(q_lat_, snr_), self.clusters, M,
-                snr=snr_, post=False)
-            print(">>> Post -------")
-            q_bas_post, elbo_post = self.compute_q_elbo(
-                resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
-                self.weight_mean(q_lat, snr_aux), clusters_temp, M,
-                snr=snr_aux, post=False)
-            if np.flatnonzero(resp_temp.sum(axis=0) < 1.0).shape[0] == 0:
-                if (q_bas < q_bas_post
-                        and not q_bas + elbo_bas < q_bas_post + elbo_post):
-                    print("Possibly better q_obs but worse elbo.")
-                if (self._dec(q_bas + elbo_bas, q_bas_post + elbo_post)
-                        and q_bas != q_bas_post):
-                    print("Reallocating beats into existing groups.")
-                    reallocate = True
-                    self.clusters = clusters_temp
-                    y_w = y_w[:, :, :, reorder] if y_w.shape[3] == M else y_w
-                    self.f_ind_old = self._elect_representatives(
-                        resp_temp, self.weight_mean(q_simple, snr_aux),
-                        f_ind_old)
-                    self.snr_norm = self.normalize_snr(snr_aux)
-                    return (resp_temp, respPair_temp, q, q_lat, snr_aux,
-                            y_w, reallocate)
-                print("Not reallocating, trying to generate new group.")
-            else:
-                print(">>> Possible emergency reallocation. Prev ----")
+                print(">>> Prev -------")
                 q_bas, elbo_bas = self.compute_q_elbo(
                     resp, respPair, self.weight_mean(q_, snr_),
-                    self.weight_mean(q_lat_, snr_), self.clusters, self.M,
+                    self.weight_mean(q_lat_, snr_), self.clusters, M,
                     snr=snr_, post=False)
-                if self._dec(q_bas + elbo_bas, q_bas_ + elbo_bas_):
-                    print("Emergency reallocation and removing last group.")
-                    reallocate = True
-                    for ld in range(L):
-                        clusters_temp[ld] = clusters_temp[ld][:-1]
-                    self.clusters = clusters_temp
-                    self.snr_norm = self.normalize_snr(snr_aux)
-                    resp_temp, respPair_temp, q, q_lat, snr_aux = \
-                        self._drop_last_col(resp_temp, respPair_temp, q,
-                                            q_lat, snr_aux)
-                    ro = np.argsort(-resp_temp.sum(axis=0), kind="stable")
-                    self.f_ind_old = self.f_ind_old[
-                        ro[:self.f_ind_old.shape[0]]] \
-                        if ro.shape[0] >= self.f_ind_old.shape[0] \
-                        else self.f_ind_old
-                    return (resp_temp, respPair_temp, q, q_lat, snr_aux,
-                            y_w, reallocate)
-                print("Bad estimation")
-                empty_estimation = True
+                print(">>> Post -------")
+                q_bas_post, elbo_post = self.compute_q_elbo(
+                    resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
+                    self.weight_mean(q_lat, snr_aux), clusters_temp, M,
+                    snr=snr_aux, post=False)
+                if np.flatnonzero(resp_temp.sum(axis=0) < 1.0).shape[0] == 0:
+                    if (q_bas < q_bas_post
+                            and not q_bas + elbo_bas < q_bas_post + elbo_post):
+                        print("Possibly better q_obs but worse elbo.")
+                    if (self._dec(q_bas + elbo_bas, q_bas_post + elbo_post)
+                            and q_bas != q_bas_post):
+                        print("Reallocating beats into existing groups.")
+                        reallocate = True
+                        self.clusters = clusters_temp
+                        if y_w.shape[3] == M:
+                            y_w = y_w[:, :, :, reorder]
+                        self.f_ind_old = self._elect_representatives(
+                            resp_temp, self.weight_mean(q_simple, snr_aux),
+                            f_ind_old)
+                        self.snr_norm = self.normalize_snr(snr_aux)
+                        return (resp_temp, respPair_temp, q, q_lat, snr_aux,
+                                y_w, reallocate)
+                    print("Not reallocating, trying to generate new group.")
+                else:
+                    print(">>> Possible emergency reallocation. Prev ----")
+                    q_bas, elbo_bas = self.compute_q_elbo(
+                        resp, respPair, self.weight_mean(q_, snr_),
+                        self.weight_mean(q_lat_, snr_), self.clusters, self.M,
+                        snr=snr_, post=False)
+                    if self._dec(q_bas + elbo_bas, q_bas_ + elbo_bas_):
+                        print("Emergency reallocation and removing last "
+                              "group.")
+                        reallocate = True
+                        for ld in range(L):
+                            clusters_temp[ld] = clusters_temp[ld][:-1]
+                        self.clusters = clusters_temp
+                        self.snr_norm = self.normalize_snr(snr_aux)
+                        resp_temp, respPair_temp, q, q_lat, snr_aux = \
+                            self._drop_last_col(resp_temp, respPair_temp, q,
+                                                q_lat, snr_aux)
+                        ro = np.argsort(-resp_temp.sum(axis=0), kind="stable")
+                        self.f_ind_old = self.f_ind_old[
+                            ro[:self.f_ind_old.shape[0]]] \
+                            if ro.shape[0] >= self.f_ind_old.shape[0] \
+                            else self.f_ind_old
+                        return (resp_temp, respPair_temp, q, q_lat, snr_aux,
+                                y_w, reallocate)
+                    print("Bad estimation")
+                    empty_estimation = True
 
         # ---- birth candidate ranking (GPI_HDP.py:1461-1529) ----
-        assigned = np.flatnonzero(resp.sum(axis=1) >= 1.0)
-        q_sim_s = self._normalized_rank(
-            self.weight_mean(q_simple)[resp == 1.0])
-        q_s = self._normalized_rank(self.weight_mean(q_)[resp == 1.0])
-        q_lat_s = self._normalized_rank(self.weight_mean(q_lat_)[resp == 1.0])
-        order_by_sim = np.argsort(q_sim_s, kind="stable")
-        order_by_q = np.argsort(q_s + q_lat_s, kind="stable")
-        # closeness groups at rtol=0.01 on the q_simple rank
-        n_steps = self.cfg.n_explore_steps
-        potential_ind = {int(i): np.flatnonzero(
-            np.isclose(q_sim_s, q_sim_s[i], rtol=0.01))
-            for i in range(q_sim_s.shape[0])}
+        with span("first.birth_rank"):
+            assigned = np.flatnonzero(resp.sum(axis=1) >= 1.0)
+            q_sim_s = self._normalized_rank(
+                self.weight_mean(q_simple)[resp == 1.0])
+            q_s = self._normalized_rank(self.weight_mean(q_)[resp == 1.0])
+            q_lat_s = self._normalized_rank(
+                self.weight_mean(q_lat_)[resp == 1.0])
+            order_by_sim = np.argsort(q_sim_s, kind="stable")
+            order_by_q = np.argsort(q_s + q_lat_s, kind="stable")
+            # closeness groups at rtol=0.01 on the q_simple rank
+            n_steps = self.cfg.n_explore_steps
+            potential_ind = {int(i): np.flatnonzero(
+                np.isclose(q_sim_s, q_sim_s[i], rtol=0.01))
+                for i in range(q_sim_s.shape[0])}
 
-        def pick_candidates(order, start_j, stop_j, picked, last_holder):
-            j_ = start_j
-            for f_ind_new in order:
-                if j_ == stop_j:
-                    break
-                f_ind_new = int(f_ind_new)
-                m_chosen = -1
-                for m in range(M - 1):
-                    if f_ind_new in indexes_[m]:
-                        m_chosen = m
+            def pick_candidates(order, start_j, stop_j, picked, last_holder):
+                j_ = start_j
+                for f_ind_new in order:
+                    if j_ == stop_j:
                         break
-                if m_chosen == -1:
-                    m_chosen = int(np.argmax(resp[f_ind_new]))
-                if f_ind_new == int(f_ind_old[min(m_chosen,
-                                                  f_ind_old.shape[0] - 1)]):
-                    continue
-                group = potential_ind[f_ind_new]
-                if any(l_ not in group for l_ in last_holder[0]):
-                    last_holder[0] = group
-                    picked[j_] = f_ind_new
-                    j_ += 1
-            return j_
+                    f_ind_new = int(f_ind_new)
+                    m_chosen = -1
+                    for m in range(M - 1):
+                        if f_ind_new in indexes_[m]:
+                            m_chosen = m
+                            break
+                    if m_chosen == -1:
+                        m_chosen = int(np.argmax(resp[f_ind_new]))
+                    m_old = min(m_chosen, f_ind_old.shape[0] - 1)
+                    if f_ind_new == int(f_ind_old[m_old]):
+                        continue
+                    group = potential_ind[f_ind_new]
+                    if any(l_ not in group for l_ in last_holder[0]):
+                        last_holder[0] = group
+                        picked[j_] = f_ind_new
+                        j_ += 1
+                return j_
 
-        candidates = np.zeros(n_steps, np.int64)
-        last_holder = [np.array([-1])]
-        half = int(max(n_steps // 2, 1))
-        pick_candidates(order_by_sim, 0, half, candidates, last_holder)
-        last_holder = [np.array([-1])]
-        pick_candidates(order_by_q, half, n_steps, candidates, last_holder)
+            candidates = np.zeros(n_steps, np.int64)
+            last_holder = [np.array([-1])]
+            half = int(max(n_steps // 2, 1))
+            pick_candidates(order_by_sim, 0, half, candidates, last_holder)
+            last_holder = [np.array([-1])]
+            pick_candidates(order_by_q, half, n_steps, candidates, last_holder)
 
         # ---- birth trials (GPI_HDP.py:1530-1793) ----
         q = q_simple.copy()
@@ -1792,171 +1826,177 @@ class HDPGPC:
                 continue
             last_indexes = group
 
-            if not empty_estimation:
-                f_ind_temp = f_ind_grow.copy()
-                f_ind_temp[-1] = f_ind_new
-                y_w, x_w, liks = self._warp_by_resp(x, y, resp_g, f_ind_temp)
-                q_simple_ = q_def.copy()
-                q = q_def.copy(); q_lat = q_lat_def.copy()
-                snr_aux = snr_def.copy()
-                q__ = q__def.copy(); q_lat__ = q_lat__def.copy()
-                print(f"Step {step + 1}/{n_steps}- Trying to divide: "
-                      f"{m_chosen} with beat {f_ind_new}")
-                step += 1
+            with span("first.birth_trial"):
+                count("birth.trials")
+                if not empty_estimation:
+                    f_ind_temp = f_ind_grow.copy()
+                    f_ind_temp[-1] = f_ind_new
+                    y_w, x_w, liks = self._warp_by_resp(x, y, resp_g,
+                                                        f_ind_temp)
+                    q_simple_ = q_def.copy()
+                    q = q_def.copy(); q_lat = q_lat_def.copy()
+                    snr_aux = snr_def.copy()
+                    q__ = q__def.copy(); q_lat__ = q_lat__def.copy()
+                    print(f"Step {step + 1}/{n_steps}- Trying to divide: "
+                          f"{m_chosen} with beat {f_ind_new}")
+                    step += 1
+                    for ld in range(L):
+                        qs, s_col = self._seed_score(
+                            self.clusters[ld][m_chosen], ld,
+                            y_w[:, :, ld, -1], f_ind_new)
+                        q_simple_[:, -1, ld] = qs + liks[:, -1, ld]
+                        snr_aux[:, -1, ld] = s_col
+                    q_mean = self.weight_mean(q_simple_, snr_aux)
+                    q_norm = q_mean - q_mean.max(axis=1, keepdims=True)
+                    resp_temp, respPair_temp = self._fb_hard(q_norm, startPi,
+                                                             transPi)
+                else:
+                    q = q__def.copy(); q_lat = q_lat__def.copy()
+                    snr_aux = snr__def.copy()
+                    q__ = q__def.copy(); q_lat__ = q_lat__def.copy()
+                    q[:, -1, :] = np.min(q) * 2.0
+                    q__[:, -1, :] = np.min(q__) * 2.0
+                    snr_aux[:, -1, :] = np.min(snr_aux) * 2.0
+                    q__[f_ind_new, -1, :] = 0.0
+                    q_simple_ = q__.copy()
+                    f_ind_temp = f_ind_grow.copy(); f_ind_temp[-1] = f_ind_new
+                    step += 1
+                    q_mean = self.weight_mean(q__, snr_aux)
+                    q_norm = q_mean - q_mean.max(axis=1, keepdims=True)
+                    resp_temp, respPair_temp = self._fb_hard(q_norm, startPi,
+                                                             transPi)
+
+                reorder = np.argsort(-resp_temp.sum(axis=0), kind="stable")
+                resp_temp = resp_temp[:, reorder].copy()
+
+                clusters_temp: List[List[Cluster]] = [
+                    [None] * Mb for _ in range(L)]
+                jobs, slots = [], []
+                # the empty_estimation branch reuses the PREVIOUS y_w (M
+                # columns) while indexing Mb = M + 1 slots; warp columns are
+                # identical when warp is off (and keyed by representative
+                # otherwise), so clamp to the last available column
+                ywc = y_w.shape[3] - 1
                 for ld in range(L):
-                    qs, s_col = self._seed_score(
-                        self.clusters[ld][m_chosen], ld,
-                        y_w[:, :, ld, -1], f_ind_new)
-                    q_simple_[:, -1, ld] = qs + liks[:, -1, ld]
-                    snr_aux[:, -1, ld] = s_col
-                q_mean = self.weight_mean(q_simple_, snr_aux)
-                q_norm = q_mean - q_mean.max(axis=1, keepdims=True)
-                resp_temp, respPair_temp = self._fb_hard(q_norm, startPi,
-                                                         transPi)
-            else:
-                q = q__def.copy(); q_lat = q_lat__def.copy()
-                snr_aux = snr__def.copy()
-                q__ = q__def.copy(); q_lat__ = q_lat__def.copy()
-                q[:, -1, :] = np.min(q) * 2.0
-                q__[:, -1, :] = np.min(q__) * 2.0
-                snr_aux[:, -1, :] = np.min(snr_aux) * 2.0
-                q__[f_ind_new, -1, :] = 0.0
-                q_simple_ = q__.copy()
-                f_ind_temp = f_ind_grow.copy(); f_ind_temp[-1] = f_ind_new
-                step += 1
-                q_mean = self.weight_mean(q__, snr_aux)
-                q_norm = q_mean - q_mean.max(axis=1, keepdims=True)
-                resp_temp, respPair_temp = self._fb_hard(q_norm, startPi,
-                                                         transPi)
-
-            reorder = np.argsort(-resp_temp.sum(axis=0), kind="stable")
-            resp_temp = resp_temp[:, reorder].copy()
-
-            clusters_temp: List[List[Cluster]] = [
-                [None] * Mb for _ in range(L)]
-            jobs, slots = [], []
-            # the empty_estimation branch reuses the PREVIOUS y_w (M
-            # columns) while indexing Mb = M + 1 slots; warp columns are
-            # identical when warp is off (and keyed by representative
-            # otherwise), so clamp to the last available column
-            ywc = y_w.shape[3] - 1
-            for ld in range(L):
-                for m in range(Mb):
-                    if reorder[m] == Mb - 1:
-                        # the newborn cluster
-                        if self.cfg.share_gp:
-                            cl = self.clusters[ld][m_chosen].clone()
+                    for m in range(Mb):
+                        if reorder[m] == Mb - 1:
+                            # the newborn cluster
+                            if self.cfg.share_gp:
+                                cl = self.clusters[ld][m_chosen].clone()
+                            else:
+                                cl = self._new_cluster()
+                            jobs.append((cl, ld,
+                                         y_w[:, :, ld, min(reorder[m], ywc)],
+                                         resp_temp[:, m]))
+                            slots.append((ld, m))
+                        elif not np.array_equal(resp[:, reorder[m]],
+                                                resp_temp[:, m]):
+                            jobs.append((self.clusters[ld][reorder[m]], ld,
+                                         y_w[:, :, ld, min(reorder[m], ywc)],
+                                         resp_temp[:, m]))
+                            slots.append((ld, m))
                         else:
-                            cl = self._new_cluster()
-                        jobs.append((cl, ld,
-                                     y_w[:, :, ld, min(reorder[m], ywc)],
-                                     resp_temp[:, m]))
-                        slots.append((ld, m))
-                    elif not np.array_equal(resp[:, reorder[m]],
-                                            resp_temp[:, m]):
-                        jobs.append((self.clusters[ld][reorder[m]], ld,
-                                     y_w[:, :, ld, min(reorder[m], ywc)],
-                                     resp_temp[:, m]))
-                        slots.append((ld, m))
-                    else:
-                        cl = self.clusters[ld][reorder[m]]
-                        q[:, m, ld] = q__[:, reorder[m], ld]
-                        q_lat[:, m, ld] = q_lat__[:, reorder[m], ld]
-                        snr_aux[:, m, ld] = snr__def[:, reorder[m], ld]
-                        clusters_temp[ld][m] = cl
-            lkc = liks.shape[1] - 1
-            for (ld, m), (q_col, ql_col, s_col, cl2) in zip(
-                    slots, self._full_refit_batch(jobs)):
-                q[:, m, ld] = q_col + liks[:, min(reorder[m], lkc), ld]
-                q_lat[:, m, ld] = ql_col
-                snr_aux[:, m, ld] = s_col
-                clusters_temp[ld][m] = cl2
+                            cl = self.clusters[ld][reorder[m]]
+                            q[:, m, ld] = q__[:, reorder[m], ld]
+                            q_lat[:, m, ld] = q_lat__[:, reorder[m], ld]
+                            snr_aux[:, m, ld] = snr__def[:, reorder[m], ld]
+                            clusters_temp[ld][m] = cl
+                lkc = liks.shape[1] - 1
+                for (ld, m), (q_col, ql_col, s_col, cl2) in zip(
+                        slots, self._full_refit_batch(jobs)):
+                    q[:, m, ld] = q_col + liks[:, min(reorder[m], lkc), ld]
+                    q_lat[:, m, ld] = ql_col
+                    snr_aux[:, m, ld] = s_col
+                    clusters_temp[ld][m] = cl2
 
-            q_bas_, elbo_bas_ = self.compute_q_elbo(
-                resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
-                self.weight_mean(q_lat, snr_aux), clusters_temp, Mb,
-                snr=snr_aux, post=True)
-            sums = resp_temp.sum(axis=0)
-            if int(np.argmax(sums)) == resp_temp.shape[1] - 1:
-                print("Bad estimation")
-                continue
-            if np.flatnonzero(sums < 1.0).shape[0] > 0:
-                print(">>> Possible emergency reallocation. Prev ----")
+                q_bas_, elbo_bas_ = self.compute_q_elbo(
+                    resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
+                    self.weight_mean(q_lat, snr_aux), clusters_temp, Mb,
+                    snr=snr_aux, post=True)
+                sums = resp_temp.sum(axis=0)
+                if int(np.argmax(sums)) == resp_temp.shape[1] - 1:
+                    print("Bad estimation")
+                    continue
+                if np.flatnonzero(sums < 1.0).shape[0] > 0:
+                    print(">>> Possible emergency reallocation. Prev ----")
+                    q_bas, elbo_bas = self.compute_q_elbo(
+                        resp, respPair, self.weight_mean(q_, snr_),
+                        self.weight_mean(q_lat_, snr_), self.clusters, self.M,
+                        snr=snr_, post=False)
+                    if self._dec(q_bas + elbo_bas, q_bas_ + elbo_bas_):
+                        print("Emergency reallocation and removing last "
+                              "group.")
+                        reallocate = True
+                        for ld in range(L):
+                            clusters_temp[ld] = clusters_temp[ld][:-1]
+                        resp_temp, respPair_temp, q, q_lat, snr_aux = \
+                            self._drop_last_col(resp_temp, respPair_temp, q,
+                                                q_lat, snr_aux)
+                        self.clusters = clusters_temp
+                        Mk = resp_temp.shape[1]
+                        self.f_ind_old = f_ind_grow[reorder][:Mk]
+                        y_w = y_w[:, :, :, reorder][:, :, :, :Mk]
+                        self.snr_norm = self.normalize_snr(snr_aux)
+                        return (resp_temp, respPair_temp, q, q_lat, snr_aux,
+                                y_w, reallocate)
+                    print("Bad estimation")
+                    continue
+
+                q_def__, elbo_def__ = self.compute_q_elbo(
+                    resp, respPair, self.weight_mean(q_, snr_),
+                    self.weight_mean(q_lat_, snr_), self.clusters, self.M,
+                    snr=snr_, post=False)
+                i__ = 0
+                while True:
+                    (resp_temp, respPair_temp, q, q_lat, snr_aux, y_w,
+                     clusters_temp) = self._estimate_q_all(
+                        Mb, x, y, y_w, resp_temp, respPair_temp, q, q_lat,
+                        snr_aux, startPi, transPi, q_def__, elbo_def__,
+                        clusters=clusters_temp, f_ind_old=f_ind_temp)
+                    q_post, elbo_post = self.compute_q_elbo(
+                        resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
+                        self.weight_mean(q_lat, snr_aux), clusters_temp, Mb,
+                        snr=snr_aux, post=True)
+                    print("ELBO_reduction: "
+                          + str((q_post + elbo_post) - (q_bas_ + elbo_bas_)))
+                    if (np.isclose(q_bas_ + elbo_bas_, q_post + elbo_post,
+                                   rtol=1e-5) and i__ > 0) or i__ == 10:
+                        break
+                    q_bas_, elbo_bas_ = q_post, elbo_post
+                    i__ += 1
+
+                print(f"- Trying to divide: {m_chosen} with beat {f_ind_new}")
+                print(">>> Prev -------")
                 q_bas, elbo_bas = self.compute_q_elbo(
                     resp, respPair, self.weight_mean(q_, snr_),
                     self.weight_mean(q_lat_, snr_), self.clusters, self.M,
                     snr=snr_, post=False)
-                if self._dec(q_bas + elbo_bas, q_bas_ + elbo_bas_):
-                    print("Emergency reallocation and removing last group.")
-                    reallocate = True
-                    for ld in range(L):
-                        clusters_temp[ld] = clusters_temp[ld][:-1]
-                    resp_temp, respPair_temp, q, q_lat, snr_aux = \
-                        self._drop_last_col(resp_temp, respPair_temp, q,
-                                            q_lat, snr_aux)
-                    self.clusters = clusters_temp
-                    self.f_ind_old = f_ind_grow[reorder][:resp_temp.shape[1]]
-                    y_w = y_w[:, :, :, reorder][:, :, :, :resp_temp.shape[1]]
-                    self.snr_norm = self.normalize_snr(snr_aux)
-                    return (resp_temp, respPair_temp, q, q_lat, snr_aux,
-                            y_w, reallocate)
-                print("Bad estimation")
-                continue
-
-            q_def__, elbo_def__ = self.compute_q_elbo(
-                resp, respPair, self.weight_mean(q_, snr_),
-                self.weight_mean(q_lat_, snr_), self.clusters, self.M,
-                snr=snr_, post=False)
-            i__ = 0
-            while True:
-                (resp_temp, respPair_temp, q, q_lat, snr_aux, y_w,
-                 clusters_temp) = self._estimate_q_all(
-                    Mb, x, y, y_w, resp_temp, respPair_temp, q, q_lat,
-                    snr_aux, startPi, transPi, q_def__, elbo_def__,
-                    clusters=clusters_temp, f_ind_old=f_ind_temp)
-                q_post, elbo_post = self.compute_q_elbo(
+                print(">>> Post -------")
+                q_bas_post, elbo_post = self.compute_q_elbo(
                     resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
                     self.weight_mean(q_lat, snr_aux), clusters_temp, Mb,
                     snr=snr_aux, post=True)
-                print("ELBO_reduction: "
-                      + str((q_post + elbo_post) - (q_bas_ + elbo_bas_)))
-                if (np.isclose(q_bas_ + elbo_bas_, q_post + elbo_post,
-                               rtol=1e-5) and i__ > 0) or i__ == 10:
-                    break
-                q_bas_, elbo_bas_ = q_post, elbo_post
-                i__ += 1
-
-            print(f"- Trying to divide: {m_chosen} with beat {f_ind_new}")
-            print(">>> Prev -------")
-            q_bas, elbo_bas = self.compute_q_elbo(
-                resp, respPair, self.weight_mean(q_, snr_),
-                self.weight_mean(q_lat_, snr_), self.clusters, self.M,
-                snr=snr_, post=False)
-            print(">>> Post -------")
-            q_bas_post, elbo_post = self.compute_q_elbo(
-                resp_temp, respPair_temp, self.weight_mean(q, snr_aux),
-                self.weight_mean(q_lat, snr_aux), clusters_temp, Mb,
-                snr=snr_aux, post=True)
-            sums = resp_temp.sum(axis=0)
-            if (np.all(sums >= 1.0)
-                    and int(np.argmax(sums)) != resp_temp.shape[1] - 1):
-                if (q_bas < q_bas_post
-                        and not q_bas + elbo_bas < q_bas_post + elbo_post):
-                    print("Possibly better q_obs but worse elbo.")
-                if self._dec(q_bas + elbo_bas, q_bas_post + elbo_post):
-                    print(f"Chosen to divide: {m_chosen} with beat "
-                          f"{f_ind_new}")
-                    self.clusters = clusters_temp
-                    if y_w.shape[3] == Mb:
-                        y_w = y_w[:, :, :, reorder]
-                    self.f_ind_old = self._elect_representatives(
-                        resp_temp, self.weight_mean(q_simple_, snr_aux),
-                        f_ind_grow)
-                    self.snr_norm = self.normalize_snr(snr_aux)
-                    return (resp_temp, respPair_temp, q, q_lat, snr_aux,
-                            y_w, reallocate)
-            else:
-                print("Bad estimation")
+                sums = resp_temp.sum(axis=0)
+                if (np.all(sums >= 1.0)
+                        and int(np.argmax(sums)) != resp_temp.shape[1] - 1):
+                    if (q_bas < q_bas_post
+                            and not q_bas + elbo_bas < q_bas_post + elbo_post):
+                        print("Possibly better q_obs but worse elbo.")
+                    if self._dec(q_bas + elbo_bas, q_bas_post + elbo_post):
+                        count("birth.accepted")
+                        print(f"Chosen to divide: {m_chosen} with beat "
+                              f"{f_ind_new}")
+                        self.clusters = clusters_temp
+                        if y_w.shape[3] == Mb:
+                            y_w = y_w[:, :, :, reorder]
+                        self.f_ind_old = self._elect_representatives(
+                            resp_temp, self.weight_mean(q_simple_, snr_aux),
+                            f_ind_grow)
+                        self.snr_norm = self.normalize_snr(snr_aux)
+                        return (resp_temp, respPair_temp, q, q_lat, snr_aux,
+                                y_w, reallocate)
+                else:
+                    print("Bad estimation")
 
         reallocate = True
         return resp, respPair, q_, q_lat_, snr_, y_w_, reallocate
@@ -2966,34 +3006,37 @@ def _install_timers():
     sum to no more than the wall time; a phase called inside itself
     counts once. On a card the clock is read after a device
     synchronise, so a phase is charged its device work, not the
-    launching of it."""
+    launching of it. Whatever the timers, each call is also a span of
+    the recorder (utils/metrics) under the timer's key, recorded while
+    the recorder is on; the span itself never synchronises."""
 
     def timed(name):
         def deco(fn):
             @functools.wraps(fn)
             def wrapper(self, *a, **k):
-                if not getattr(self, "_timing_on", False) or any(
-                        f[0] == name for f in self._timing_stack):
-                    return fn(self, *a, **k)
-                stack = self._timing_stack
-                cuda = self.device.type == "cuda"
-                if cuda:
-                    torch.cuda.synchronize(self.device)
-                frame = [name, 0.0]
-                stack.append(frame)
-                t0 = time.perf_counter()
-                try:
-                    return fn(self, *a, **k)
-                finally:
+                with span(name):
+                    if not getattr(self, "_timing_on", False) or any(
+                            f[0] == name for f in self._timing_stack):
+                        return fn(self, *a, **k)
+                    stack = self._timing_stack
+                    cuda = self.device.type == "cuda"
                     if cuda:
                         torch.cuda.synchronize(self.device)
-                    dt = time.perf_counter() - t0
-                    stack.pop()
-                    self.timings[name] = (self.timings.get(name, 0.0)
-                                          + dt - frame[1])
-                    self.counts[name] = self.counts.get(name, 0) + 1
-                    if stack:
-                        stack[-1][1] += dt
+                    frame = [name, 0.0]
+                    stack.append(frame)
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(self, *a, **k)
+                    finally:
+                        if cuda:
+                            torch.cuda.synchronize(self.device)
+                        dt = time.perf_counter() - t0
+                        stack.pop()
+                        self.timings[name] = (self.timings.get(name, 0.0)
+                                              + dt - frame[1])
+                        self.counts[name] = self.counts.get(name, 0) + 1
+                        if stack:
+                            stack[-1][1] += dt
             return wrapper
         return deco
 

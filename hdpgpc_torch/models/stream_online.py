@@ -23,6 +23,16 @@ by kernel A (``gplds.apply_kernel_fit``); the step counts its fits and
 their seconds, synchronised on the card (``step.fits``,
 ``step.fit_seconds``).
 
+While the recorder of utils/metrics is on, each beat is a
+``stream.step`` span around its sections (``step.score``,
+``step.candidates``, ``step.elbo``, ``step.decide``, ``step.commit``
+with the ``need_fit`` read ``step.fit_read`` and a first member's
+``step.kernel_fit`` inside it, ``step.reorder``), each refresh a
+``stream.refresh`` span and the read of a run's assignments
+``stream.collect``. The spans read the host's clock, so a section's
+span covers the launching of its work, and ``step.fit_read`` the host's
+wait for the beat's queued work.
+
 With chunk=1 the rho/omega cadence is the reference's (refined between
 every two beats); larger chunks amortise the L-BFGS over many beats
 (rho/omega are reinitialised deterministically on the device every
@@ -48,6 +58,7 @@ from hdpgpc_torch.models.kernel_fit import _adam_fit
 from hdpgpc_torch.ops import sb_device as sbd
 from hdpgpc_torch.ops import stick_breaking as sb
 from hdpgpc_torch.ops.kernels import KernelParams
+from hdpgpc_torch.utils.metrics import span
 
 HDT = torch.float64   # accounting dtype (counts, ELBO terms, sums)
 
@@ -170,6 +181,10 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
                                                           theta)])
 
     def step(carry: StreamState, y: torch.Tensor):
+        with span("stream.step"):
+            return _step(carry, y)
+
+    def _step(carry: StreamState, y: torch.Tensor):
         dev = y.device
         t, M = carry.t, carry.M
         ar = torch.arange(K, device=dev)
@@ -179,153 +194,164 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
         NEG = torch.full((), -1e30, dtype=dtype, device=dev)
 
         # ---- 1. scores against every cluster's last state ----
-        scores = torch.where(act, gplds.log_sq_error_last(states, y), NEG)
-        m_best = torch.argmax(scores)
+        with span("step.score"):
+            scores = torch.where(act, gplds.log_sq_error_last(states, y), NEG)
+            m_best = torch.argmax(scores)
 
         # ---- 2. candidates: absorb into each slot, and the birth ----
-        ests = gplds.estimate_new(states, y).to(HDT)
-        cand = _append_state(states, y, fwd_abs)
-        vf_c, vp_c, vl_c = (v.to(HDT) for v in gplds.q_lat_tail(cand, 1.0))
-        lds_cand = gplds.lds_param_elbo(cand, fd).to(HDT)
+        with span("step.candidates"):
+            ests = gplds.estimate_new(states, y).to(HDT)
+            cand = _append_state(states, y, fwd_abs)
+            vf_c, vp_c, vl_c = (v.to(HDT) for v in gplds.q_lat_tail(cand, 1.0))
+            lds_cand = gplds.lds_param_elbo(cand, fd).to(HDT)
 
-        q_ord = torch.argsort(-torch.where(act, scores, -torch.inf),
-                              stable=True)
-        m_template = q_ord.index_select(
-            0, torch.clamp(M - 1, min=0).reshape(1))
-        btempl = gplds.reinit_cluster_state(_take(states, m_template), fd)
-        est_b = gplds.estimate_new(btempl, y)[0]
-        b_state = _append_state(btempl, y, fwd_birth)
-        vf_b5 = (gplds.q_lat_tail(b_state, 0.5)[0][0] * 5.0).to(HDT)
-        lds_b = gplds.lds_param_elbo(b_state, fd)[0].to(HDT)
+            q_ord = torch.argsort(-torch.where(act, scores, -torch.inf),
+                                  stable=True)
+            m_template = q_ord.index_select(
+                0, torch.clamp(M - 1, min=0).reshape(1))
+            btempl = gplds.reinit_cluster_state(_take(states, m_template), fd)
+            est_b = gplds.estimate_new(btempl, y)[0]
+            b_state = _append_state(btempl, y, fwd_birth)
+            vf_b5 = (gplds.q_lat_tail(b_state, 0.5)[0][0] * 5.0).to(HDT)
+            lds_b = gplds.lds_param_elbo(b_state, fd)[0].to(HDT)
 
         # ---- 3. one-sample ELBO totals (masked elbo_Linears) ----
-        n_all = carry.n.to(HDT)
-        tot_n = torch.sum(n_all)
-        sum_lds_n = torch.sum(torch.where(carry.n > 0, carry.lds * n_all,
-                                          torch.zeros_like(n_all)))
-        base_lds = sum_lds_n / torch.clamp(tot_n, min=1e-300)
-        base_total = carry.q_sel_sum + carry.qlat_sel_sum \
-            + lin(carry, M, carry.trans_counts) + base_lds
+        with span("step.elbo"):
+            n_all = carry.n.to(HDT)
+            tot_n = torch.sum(n_all)
+            sum_lds_n = torch.sum(torch.where(carry.n > 0, carry.lds * n_all,
+                                              torch.zeros_like(n_all)))
+            base_lds = sum_lds_n / torch.clamp(tot_n, min=1e-300)
+            base_total = carry.q_sel_sum + carry.qlat_sel_sum \
+                + lin(carry, M, carry.trans_counts) + base_lds
 
-        # gate: does the birth slot win the emission argmax?
-        gate = (est_b > torch.max(scores)) & (t > 0) & (M < cap)
-        from_prev = eK1[:, None] == carry.prev_state
+            # gate: does the birth slot win the emission argmax?
+            gate = (est_b > torch.max(scores)) & (t > 0) & (M < cap)
+            from_prev = eK1[:, None] == carry.prev_state
 
-        # birth candidate total
-        tc_b = carry.trans_counts + (from_prev & (eK1[None, :] == M)).to(HDT)
-        birth_total = (carry.q_sel_sum + est_b.to(HDT)) \
-            + (carry.qlat_sel_sum + vf_b5) + lin(carry, M + 1, tc_b) \
-            + (sum_lds_n + lds_b) / (tot_n + 1.0) - base_total
+            # birth candidate total
+            tc_b = carry.trans_counts \
+                + (from_prev & (eK1[None, :] == M)).to(HDT)
+            birth_total = (carry.q_sel_sum + est_b.to(HDT)) \
+                + (carry.qlat_sel_sum + vf_b5) + lin(carry, M + 1, tc_b) \
+                + (sum_lds_n + lds_b) / (tot_n + 1.0) - base_total
 
-        # absorb candidate totals, every slot at once
-        patch_t_val = torch.where(carry.n >= 1, vl_c, vf_c)
-        prev_newval = torch.where(carry.n >= 2, vp_c, vf_c)
-        patched_prev = carry.last_t == (t - 1)
-        d_prev = torch.where(patched_prev, prev_newval - carry.qlat_last,
-                             torch.zeros_like(prev_newval))
-        qlat_m = carry.qlat_sel_sum + patch_t_val + d_prev
-        q_m = carry.q_sel_sum + ests
-        tc_m = carry.trans_counts + (
-            from_prev[None] & (eK1[None, None, :] == ar[:, None, None])
-        ).to(HDT)                                           # (K, K+1, K+1)
-        lds_tot_m = (sum_lds_n - carry.lds * n_all
-                     + lds_cand * (n_all + 1.0)) / (tot_n + 1.0)
-        absorb_total = q_m + qlat_m + lin(carry, M, tc_m) + lds_tot_m \
-            - base_total
+            # absorb candidate totals, every slot at once
+            patch_t_val = torch.where(carry.n >= 1, vl_c, vf_c)
+            prev_newval = torch.where(carry.n >= 2, vp_c, vf_c)
+            patched_prev = carry.last_t == (t - 1)
+            d_prev = torch.where(patched_prev, prev_newval - carry.qlat_last,
+                                 torch.zeros_like(prev_newval))
+            qlat_m = carry.qlat_sel_sum + patch_t_val + d_prev
+            q_m = carry.q_sel_sum + ests
+            tc_m = carry.trans_counts + (
+                from_prev[None] & (eK1[None, None, :] == ar[:, None, None])
+            ).to(HDT)                                           # (K, K+1, K+1)
+            lds_tot_m = (sum_lds_n - carry.lds * n_all
+                         + lds_cand * (n_all + 1.0)) / (tot_n + 1.0)
+            absorb_total = q_m + qlat_m + lin(carry, M, tc_m) + lds_tot_m \
+                - base_total
 
         # ---- 4. decision: the first absorb candidate (in q-order) that
         # beats the birth total, else birth (GPI_HDP.py:2484-2541) ----
-        wins = (absorb_total > birth_total)[q_ord] & act
-        any_win = torch.any(wins)
-        first_win = q_ord[torch.argmax(wins.to(torch.int8))]
-        win = gate & any_win
-        chosen_abs = torch.where(win, first_win, m_best)
-        do_birth = gate & ~any_win
-        slot = torch.where(do_birth, M, chosen_abs)
-        slot1 = slot.reshape(1)
+        with span("step.decide"):
+            wins = (absorb_total > birth_total)[q_ord] & act
+            any_win = torch.any(wins)
+            first_win = q_ord[torch.argmax(wins.to(torch.int8))]
+            win = gate & any_win
+            chosen_abs = torch.where(win, first_win, m_best)
+            do_birth = gate & ~any_win
+            slot = torch.where(do_birth, M, chosen_abs)
+            slot1 = slot.reshape(1)
 
         # ---- 5. commit (GPI_HDP._include_one): absorb includes into the
         # current state; a birth's slot M still holds a pristine default
         # cluster (slots are never freed), so one gather covers both. A
         # first-ever member fits its kernel first (a host branch).
-        src = _take(states, slot1)
-        need_fit = ~carry.fitted.index_select(0, slot1) \
-            & (carry.n.index_select(0, slot1) == 0)
-        if bool(need_fit):
-            t_fit = time.perf_counter()
-            src = fit(src, y)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            step.fits += 1
-            step.fit_seconds += time.perf_counter() - t_fit
-        committed = _append_state(src, y, fwd_commit)
-        lds_new = gplds.lds_param_elbo(committed, fd).to(HDT)
+        with span("step.commit"):
+            src = _take(states, slot1)
+            need_fit = ~carry.fitted.index_select(0, slot1) \
+                & (carry.n.index_select(0, slot1) == 0)
+            with span("step.fit_read"):
+                need_fit = bool(need_fit)
+            if need_fit:
+                with span("step.kernel_fit"):
+                    t_fit = time.perf_counter()
+                    src = fit(src, y)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    step.fits += 1
+                    step.fit_seconds += time.perf_counter() - t_fit
+            committed = _append_state(src, y, fwd_commit)
+            lds_new = gplds.lds_param_elbo(committed, fd).to(HDT)
 
-        states2 = tree_map(lambda a, b: a.index_copy(0, slot1, b.to(a.dtype)),
-                           states, committed)
-        at_slot = ar == slot
-        n2 = carry.n + at_slot.to(carry.n.dtype)
-        fitted2 = carry.fitted | at_slot
-        last_t2 = torch.where(at_slot, t, carry.last_t)
-        lds2 = torch.where(at_slot, lds_new, carry.lds)
+            states2 = tree_map(
+                lambda a, b: a.index_copy(0, slot1, b.to(a.dtype)),
+                states, committed)
+            at_slot = ar == slot
+            n2 = carry.n + at_slot.to(carry.n.dtype)
+            fitted2 = carry.fitted | at_slot
+            last_t2 = torch.where(at_slot, t, carry.last_t)
+            lds2 = torch.where(at_slot, lds_new, carry.lds)
 
-        # cache bookkeeping (selected sums + per-cluster last values)
-        ests_c = ests[chosen_abs]
-        q_add = torch.where(do_birth, est_b.to(HDT),
-                            torch.where(win, ests_c,
-                                        scores[chosen_abs].to(HDT)))
-        ptv_c = patch_t_val[chosen_abs]
-        zero = torch.zeros((), dtype=HDT, device=dev)
-        qlat_add = torch.where(do_birth, vf_b5,
-                               torch.where(win, ptv_c + d_prev[chosen_abs],
-                                           zero))
-        qlat_last2 = torch.where(
-            at_slot, torch.where(do_birth, vf_b5,
-                                 torch.where(win, ptv_c, zero)),
-            carry.qlat_last)
+            # cache bookkeeping (selected sums + per-cluster last values)
+            ests_c = ests[chosen_abs]
+            q_add = torch.where(do_birth, est_b.to(HDT),
+                                torch.where(win, ests_c,
+                                            scores[chosen_abs].to(HDT)))
+            ptv_c = patch_t_val[chosen_abs]
+            zero = torch.zeros((), dtype=HDT, device=dev)
+            qlat_add = torch.where(do_birth, vf_b5,
+                                   torch.where(win, ptv_c + d_prev[chosen_abs],
+                                               zero))
+            qlat_last2 = torch.where(
+                at_slot, torch.where(do_birth, vf_b5,
+                                     torch.where(win, ptv_c, zero)),
+                carry.qlat_last)
 
-        # counts
-        first_beat = t == 0
-        start2 = carry.start_counts + torch.where(
-            first_beat, (eK1 == slot).to(HDT), zero)
-        src_row = torch.where(first_beat, slot, carry.prev_state)
-        trans2 = carry.trans_counts + (
-            (eK1[:, None] == src_row) & (eK1[None, :] == slot)).to(HDT)
-        M2 = torch.where(do_birth, M + 1, M)
-        uid_chosen = torch.where(do_birth, carry.uid_next,
-                                 carry.slot_uid[slot])
-        slot_uid2 = torch.where(at_slot, uid_chosen, carry.slot_uid)
-        uid_next2 = torch.where(do_birth, carry.uid_next + 1,
-                                carry.uid_next)
+            # counts
+            first_beat = t == 0
+            start2 = carry.start_counts + torch.where(
+                first_beat, (eK1 == slot).to(HDT), zero)
+            src_row = torch.where(first_beat, slot, carry.prev_state)
+            trans2 = carry.trans_counts + (
+                (eK1[:, None] == src_row) & (eK1[None, :] == slot)).to(HDT)
+            M2 = torch.where(do_birth, M + 1, M)
+            uid_chosen = torch.where(do_birth, carry.uid_next,
+                                     carry.slot_uid[slot])
+            slot_uid2 = torch.where(at_slot, uid_chosen, carry.slot_uid)
+            uid_next2 = torch.where(do_birth, carry.uid_next + 1,
+                                    carry.uid_next)
 
         # ---- 6. popularity reorder (GPI_HDP.reorder) ----
-        key = torch.where(ar < M2, -n2, K + 1 + ar)
-        perm = torch.argsort(key, stable=True)
-        inv = torch.argsort(perm, stable=True)
-        permK1 = torch.cat([perm, torch.full((1,), K, device=dev,
-                                             dtype=perm.dtype)])
-        prev3 = inv[slot].to(torch.int32)
+        with span("step.reorder"):
+            key = torch.where(ar < M2, -n2, K + 1 + ar)
+            perm = torch.argsort(key, stable=True)
+            inv = torch.argsort(perm, stable=True)
+            permK1 = torch.cat([perm, torch.full((1,), K, device=dev,
+                                                 dtype=perm.dtype)])
+            prev3 = inv[slot].to(torch.int32)
 
-        # ---- 7. deterministic HDP reinit (the L-BFGS refinement runs on
-        # the host at chunk boundaries; GPI_HDP.py:2113-2141) ----
-        big = M2 > 2
-        rho2 = torch.where(big, sbd.create_init_rho_dyn(K, M2 - 1, HDT),
-                           carry.rho)
-        omega2 = torch.where(big, torch.where(
-            ar < M2 - 1, torch.full_like(carry.omega, 1.0 + gamma),
-            torch.zeros_like(carry.omega)), carry.omega)
-        M_rho2 = torch.where(big, M2 - 1, carry.M_rho)
+            # ---- 7. deterministic HDP reinit (the L-BFGS refinement runs on
+            # the host at chunk boundaries; GPI_HDP.py:2113-2141) ----
+            big = M2 > 2
+            rho2 = torch.where(big, sbd.create_init_rho_dyn(K, M2 - 1, HDT),
+                               carry.rho)
+            omega2 = torch.where(big, torch.where(
+                ar < M2 - 1, torch.full_like(carry.omega, 1.0 + gamma),
+                torch.zeros_like(carry.omega)), carry.omega)
+            M_rho2 = torch.where(big, M2 - 1, carry.M_rho)
 
-        new_carry = StreamState(
-            states=_take(states2, perm), fitted=fitted2[perm], n=n2[perm],
-            last_t=last_t2[perm], qlat_last=qlat_last2[perm],
-            lds=lds2[perm], q_sel_sum=carry.q_sel_sum + q_add,
-            qlat_sel_sum=carry.qlat_sel_sum + qlat_add, prev_state=prev3,
-            start_counts=start2[permK1],
-            trans_counts=trans2[permK1][:, permK1],
-            rho=rho2, omega=omega2, M_rho=M_rho2.to(torch.int32),
-            M=M2.to(torch.int32), t=t + 1, slot_uid=slot_uid2[perm],
-            uid_next=uid_next2)
+            new_carry = StreamState(
+                states=_take(states2, perm), fitted=fitted2[perm], n=n2[perm],
+                last_t=last_t2[perm], qlat_last=qlat_last2[perm],
+                lds=lds2[perm], q_sel_sum=carry.q_sel_sum + q_add,
+                qlat_sel_sum=carry.qlat_sel_sum + qlat_add, prev_state=prev3,
+                start_counts=start2[permK1],
+                trans_counts=trans2[permK1][:, permK1],
+                rho=rho2, omega=omega2, M_rho=M_rho2.to(torch.int32),
+                M=M2.to(torch.int32), t=t + 1, slot_uid=slot_uid2[perm],
+                uid_next=uid_next2)
         return new_carry, StepOut(uid=uid_chosen, slot=prev3,
                                   birth=do_birth, M=M2)
 
@@ -423,25 +449,32 @@ class OnlineStreamEngine:
     def _host_hdp_refresh(self):
         """reinit_globals + 4 x (theta update, rho/omega L-BFGS): the
         reference's per-beat global update (GPI_HDP.py:2113-2141) run at
-        the chunk boundary on the fetched counts."""
-        c = self.carry
-        M = int(c.M)
-        if M < 2:
-            return
-        sc = c.start_counts[:M].cpu().numpy()
-        tc = c.trans_counts[:M, :M].cpu().numpy()
-        glob = self.model.glob
-        if M > 2:
-            glob = sb.reinit_globals(glob, M - 1, tc, sc)
-        for _ in range(4):
-            tt, st = sb.calc_theta_full(glob, tc, sc, M)
-            glob = sb.HDPGlobals(glob.rho, glob.omega, tt, st, glob.gamma,
-                                 glob.trans_alpha, glob.start_alpha,
-                                 glob.kappa)
-            glob = sb.optimise_globals(glob, M=M + 1)
-        self.model.glob = glob
-        rho, omega, M_rho = self._padded_globals(glob)
-        self.carry = self.carry._replace(rho=rho, omega=omega, M_rho=M_rho)
+        the chunk boundary on the fetched counts. Spans: ``stream.refresh``
+        around ``refresh.fetch`` (the counts read to the host),
+        ``refresh.lbfgs`` and ``refresh.upload`` (the globals back)."""
+        with span("stream.refresh"):
+            c = self.carry
+            with span("refresh.fetch"):
+                M = int(c.M)
+                if M < 2:
+                    return
+                sc = c.start_counts[:M].cpu().numpy()
+                tc = c.trans_counts[:M, :M].cpu().numpy()
+            with span("refresh.lbfgs"):
+                glob = self.model.glob
+                if M > 2:
+                    glob = sb.reinit_globals(glob, M - 1, tc, sc)
+                for _ in range(4):
+                    tt, st = sb.calc_theta_full(glob, tc, sc, M)
+                    glob = sb.HDPGlobals(glob.rho, glob.omega, tt, st,
+                                         glob.gamma, glob.trans_alpha,
+                                         glob.start_alpha, glob.kappa)
+                    glob = sb.optimise_globals(glob, M=M + 1)
+                self.model.glob = glob
+            with span("refresh.upload"):
+                rho, omega, M_rho = self._padded_globals(glob)
+                self.carry = self.carry._replace(rho=rho, omega=omega,
+                                                 M_rho=M_rho)
 
     def run(self, Y: np.ndarray, hdp_refresh: bool = True) -> np.ndarray:
         """Stream a batch of beats (N, T) or (N, T, 1); returns the stable
@@ -466,8 +499,9 @@ class OnlineStreamEngine:
                                          o.birth.to(torch.int64)]))
             if hdp_refresh:
                 self._host_hdp_refresh()
-        got = torch.stack(outs).cpu().numpy() if outs \
-            else np.zeros((0, 2), np.int64)
+        with span("stream.collect"):
+            got = torch.stack(outs).cpu().numpy() if outs \
+                else np.zeros((0, 2), np.int64)
         self.uids.extend(got[:, 0].tolist())
         self.births.extend(got[:, 1].astype(bool).tolist())
         return got[:, 0]

@@ -1,13 +1,29 @@
-"""Structured per-sweep metrics and the profiler hooks (counterpart of
-hdpgpc_tpu.utils.metrics): ``debug_nans`` raises on the first op that
-makes a NaN, ``trace`` records a ``torch.profiler`` trace, ``Timer``
-keeps wall-clock laps (synchronising a card first when given one)."""
+"""Structured per-sweep metrics, the span and counter recorder, and the
+profiler hooks (counterpart of hdpgpc_tpu.utils.metrics).
+
+* ``SweepMetrics`` / ``MetricsLog``: one record per offline sweep.
+* The recorder: ``span(name)`` brackets a phase of the program and
+  ``count(name, n)`` adds to a named counter. Both do nothing until
+  ``enable()`` (one module-level test, no clock read, no allocation);
+  once enabled, a span keeps its name, id, parent (the span open on the
+  same thread) and start and end (``time.perf_counter_ns``), and enters
+  ``torch.profiler.record_function("hdpgpc." + name)``, so that under a
+  profiler each span is a ``user_annotation`` on the clock of the
+  device's kernel records. A span never synchronises a card: its
+  interval is the host's. ``snapshot()`` returns the closed spans, each
+  with its self time (its duration less its children's), and the
+  counters; ``reset()`` empties both, ``disable()`` stops recording.
+  Everything stays in memory.
+* ``debug_nans`` raises on the first op that makes a NaN; ``trace``
+  records a ``torch.profiler`` trace to a file.
+"""
 
 from __future__ import annotations
 
 import contextlib
-import json
+import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -43,10 +59,97 @@ class MetricsLog:
         kw.setdefault("t_wall", time.time())
         self.records.append(kw)
 
-    def dump(self, path: str):
-        with open(path, "w") as f:
-            for r in self.records:
-                f.write(json.dumps(r) + "\n")
+
+# ---- the span and counter recorder ----
+
+PREFIX = "hdpgpc."
+_ON = False
+_NULL = contextlib.nullcontext()
+# the recorder's clock and its profiler annotation (module names, so that
+# a test can check that neither is reached while the recorder is off)
+_clock = time.perf_counter_ns
+record_function = torch.profiler.record_function
+_spans: List[list] = []          # [name, id, parent id, start, end] (ns)
+_counters: Dict[str, int] = {}
+_ids = itertools.count(1)
+_local = threading.local()       # the spans open on each thread
+
+
+class _Span:
+    __slots__ = ("_rec", "_rf", "_stack")
+
+    def __init__(self, name: str):
+        self._rec = [name, 0, None, 0, None]
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        rec = self._rec
+        rec[1] = next(_ids)
+        rec[2] = stack[-1][1] if stack else None
+        self._rf = record_function(PREFIX + rec[0])
+        self._rf.__enter__()
+        self._stack = stack
+        stack.append(rec)
+        _spans.append(rec)
+        rec[3] = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        self._rec[4] = _clock()
+        self._stack.pop()
+        self._rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, n: Optional[int] = None):
+    """Context manager bracketing one phase; ``n`` is appended to the
+    name as ``name[n]`` (a size the phase ran at). Off: the shared null
+    context."""
+    if not _ON:
+        return _NULL
+    return _Span(name if n is None else f"{name}[{n}]")
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` (nothing while the recorder is
+    off)."""
+    if _ON:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def enable() -> None:
+    global _ON
+    _ON = True
+
+
+def disable() -> None:
+    global _ON
+    _ON = False
+
+
+def reset() -> None:
+    """Forget every recorded span and counter."""
+    _spans.clear()
+    _counters.clear()
+
+
+def snapshot() -> Dict:
+    """``{"spans": [...], "counters": {...}}``: every closed span as a
+    dict of ``name``, ``id``, ``parent`` (None at the top), ``start_ns``,
+    ``end_ns`` and ``self_ns`` (the duration less the durations of its
+    closed children), in the order the spans opened."""
+    done = [r for r in _spans if r[4] is not None]
+    inner: Dict[int, int] = {}
+    for r in done:
+        if r[2] is not None:
+            inner[r[2]] = inner.get(r[2], 0) + r[4] - r[3]
+    return dict(
+        spans=[dict(name=r[0], id=r[1], parent=r[2], start_ns=r[3],
+                    end_ns=r[4], self_ns=r[4] - r[3] - inner.get(r[1], 0))
+               for r in done],
+        counters=dict(_counters))
 
 
 class _RaiseOnNaN(TorchDispatchMode):
@@ -85,24 +188,3 @@ def trace(log_dir: str):
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class Timer:
-    """Wall-clock laps; with ``device`` a CUDA device, each clock read
-    waits for the card's queued work first."""
-
-    def __init__(self, device: Optional[torch.device] = None):
-        self.device = None if device is None else torch.device(device)
-        self.t0 = self._now()
-        self.laps: Dict[str, float] = {}
-
-    def _now(self) -> float:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def lap(self, name: str):
-        now = self._now()
-        self.laps[name] = self.laps.get(name, 0.0) + now - self.t0
-        self.t0 = now
-        return self.laps[name]
