@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from hdpgpc_torch.models.gplds import ClusterState
+from hdpgpc_torch.models.gplds import ClusterState, tree_leaves  # noqa: F401
 from hdpgpc_torch.models.mniw import MNIW
 from hdpgpc_torch.models import streaming
 from hdpgpc_torch.models.stream_online import StreamState
@@ -123,13 +123,6 @@ def frozen_stream_state_from_numpy(d, device="cpu", dtype=torch.float64
     it is compared by value)."""
     return streaming.StreamState(*[_t(getattr(d, f), device, dtype)
                                    for f in streaming.StreamState._fields])
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a NamedTuple tree in ``jax.tree.leaves`` order."""
-    if isinstance(tree, tuple):
-        return [leaf for sub in tree for leaf in tree_leaves(sub)]
-    return [tree]
 
 
 def tree_unflatten(proto, leaves, device="cpu"):

@@ -101,6 +101,13 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a NamedTuple tree in ``jax.tree.leaves`` order."""
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
 def stack_states(states):
     """Stack unbatched states along a new leading job dim."""
     return tree_map(lambda *xs: torch.stack(xs), *states)
@@ -434,9 +441,18 @@ def make_forward_step(T, limit, annealing, dynamic, update_params,
     ``carry`` = (f, P, f_prevF, P_prevF, A, G, C, S, mniw2, n, noise0,
     G0diag, S0diag), each with a leading job dim J; mniw2 holds the
     internal/observation posteriors stacked on dim 1. ``inp`` =
-    (y (J, T), h (J,) in {0, 1})."""
+    (y (J, T), h (J,) in {0, 1}).
 
-    def forward_step(carry, inp):
+    The step is ``finish(ctx, spd_solve(spd, rhs))`` with ``ctx, spd,
+    rhs = prepare(carry, inp)``; both halves hang on the returned
+    function (``forward_step.prepare``, ``forward_step.finish``), so
+    that a caller can put its own work between them and the kernel B
+    call (the stream engine's CUDA graphs end at it)."""
+
+    def prepare(carry, inp):
+        """Everything before the step's one solve: the SPD stack and its
+        right-hand sides, (J k, T, T) each and contiguous, and what
+        ``finish`` reads."""
         (f, P, f_prevF, P_prevF, A, G, C, S, mniw, n,
          noise0, G0diag, S0diag) = carry
         y, h = inp
@@ -474,10 +490,21 @@ def make_forward_step(T, limit, annealing, dynamic, update_params,
             stacked = torch.cat([stacked, V_sym], 1)
             rhs_list += [eye.expand(Jn, T, T), eye.expand(Jn, T, T)]
         rhs = torch.stack(rhs_list, 1)
-        k = rhs.shape[1]
-        X = spd_solve(stacked.reshape(Jn * k, T, T).contiguous(),
-                      rhs.reshape(Jn * k, T, T).contiguous()
-                      ).reshape(Jn, k, T, T)
+        ctx = (carry, y, eye, member, N_new, N_newf, m, P_pred_dyn,
+               P_pred_kal, y_pred, R)
+        return (ctx, stacked.reshape(-1, T, T).contiguous(),
+                rhs.reshape(-1, T, T).contiguous())
+
+    def finish(ctx, X):
+        """Everything after the solve, from ``prepare``'s ``ctx`` and the
+        solution X (J k, T, T): (new_carry, emit)."""
+        (carry, y, eye, member, N_new, N_newf, m, P_pred_dyn,
+         P_pred_kal, y_pred, R) = ctx
+        (f, P, f_prevF, P_prevF, A, G, C, S, mniw, n,
+         noise0, G0diag, S0diag) = carry
+        dtype = f.dtype
+        Jn = f.shape[0]
+        X = X.reshape(Jn, -1, T, T)
         K = _t(X[:, 0])                                   # P_pred C' S^-1
         f_up = m + K @ (y[..., None] - y_pred)
         IKC = eye - K @ C
@@ -555,6 +582,11 @@ def make_forward_step(T, limit, annealing, dynamic, update_params,
             emit = emit + (f_smp, P_smp)
         return new_carry, emit
 
+    def forward_step(carry, inp):
+        ctx, spd, rhs = prepare(carry, inp)
+        return finish(ctx, spd_solve(spd, rhs))
+
+    forward_step.prepare, forward_step.finish = prepare, finish
     return forward_step
 
 

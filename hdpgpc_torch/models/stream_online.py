@@ -23,15 +23,33 @@ by kernel A (``gplds.apply_kernel_fit``); the step counts its fits and
 their seconds, synchronised on the card (``step.fits``,
 ``step.fit_seconds``).
 
+The beat is written once, as a generator (``beat``) that yields at its
+four host actions: the three kernel B calls and the ``need_fit`` read.
+A CPU tensor's beat drives it eagerly, op by op. On a CUDA device the
+first beat of a (K, T, dtype, device) runs eagerly on a side stream,
+the second captures the five stretches between the host actions as
+CUDA graphs on that stream (``BeatGraphs``), and every later beat
+replays them: the carry and the beat are copied into the graphs'
+static buffers, the graphs replay in order with the three kernel B
+calls launched eagerly between them (through ``gplds.spd_solve``,
+looked up at every call), the ``need_fit`` read and, on a first
+member, the kernel fit between the third graph and the fourth, and the
+new carry and the StepOut come out as fresh clones. So the step never
+writes a tensor it was given or has returned, and its arithmetic is
+the eager beat's. A failed capture raises.
+
 While the recorder of utils/metrics is on, each beat is a
-``stream.step`` span around its sections (``step.score``,
-``step.candidates``, ``step.elbo``, ``step.decide``, ``step.commit``
-with the ``need_fit`` read ``step.fit_read`` and a first member's
-``step.kernel_fit`` inside it, ``step.reorder``), each refresh a
-``stream.refresh`` span and the read of a run's assignments
-``stream.collect``. The spans read the host's clock, so a section's
-span covers the launching of its work, and ``step.fit_read`` the host's
-wait for the beat's queued work.
+``stream.step`` span and counts as ``stream.eager_beats`` or
+``stream.graph_beats``. An eager beat's span holds its sections
+(``step.score``, ``step.candidates``, ``step.elbo``, ``step.decide``,
+``step.commit`` with the ``need_fit`` read ``step.fit_read`` and a
+first member's ``step.kernel_fit`` inside it, ``step.reorder``); a
+replayed beat's holds ``step.copy_in``, ``step.seg[i]`` (the i-th
+graph's replay, i = 1..5), ``step.fit_read``, ``step.kernel_fit`` and
+``step.copy_out``. Each refresh is a ``stream.refresh`` span and the
+read of a run's assignments ``stream.collect``. The spans read the
+host's clock, so a section's span covers the launching of its work,
+and ``step.fit_read`` the host's wait for the beat's queued work.
 
 With chunk=1 the rho/omega cadence is the reference's (refined between
 every two beats); larger chunks amortise the L-BFGS over many beats
@@ -45,6 +63,8 @@ configurations use HDPGPC.include_sample_fast.
 
 from __future__ import annotations
 
+import contextlib
+import math
 import time
 from typing import NamedTuple
 
@@ -53,12 +73,12 @@ import torch
 
 from hdpgpc_torch.models import gplds
 from hdpgpc_torch.models.gplds import (ClusterState, make_forward_step,
-                                       tree_map)
+                                       tree_leaves, tree_map)
 from hdpgpc_torch.models.kernel_fit import _adam_fit
 from hdpgpc_torch.ops import sb_device as sbd
 from hdpgpc_torch.ops import stick_breaking as sb
 from hdpgpc_torch.ops.kernels import KernelParams
-from hdpgpc_torch.utils.metrics import span
+from hdpgpc_torch.utils.metrics import count, span
 
 HDT = torch.float64   # accounting dtype (counts, ELBO terms, sums)
 
@@ -99,11 +119,20 @@ def _take(tree, idx: torch.Tensor):
     return tree_map(lambda a: a.index_select(0, idx), tree)
 
 
-def _append_state(st: ClusterState, y, fwd) -> ClusterState:
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a device scalar index ``i`` without the host read
+    that indexing with a 0-dim tensor makes (it reads the index as a
+    Python int)."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def _append_state(st: ClusterState, y, fwd):
     """Append ONE beat to a (J-stacked) cluster state with the shared
     refit step (make_forward_step) and the single-member compact-summary
     update (gplds.build_refit's summary rules for mb == 1,
-    full_backward=False)."""
+    full_backward=False). A generator: it yields the step's kernel B
+    operands ``("solve", spd, rhs)``, takes their solution back and
+    returns the new state."""
     J = st.n.shape[0]
     mniw0 = tree_map(lambda a, b: torch.stack([a, b], 1), st.mniw_int,
                      st.mniw_obs)
@@ -113,7 +142,9 @@ def _append_state(st: ClusterState, y, fwd) -> ClusterState:
               st.A, st.Gamma, st.C, st.Sigma, mniw0, st.n,
               st.theta.noise, G0diag, S0diag)
     one = torch.ones(J, dtype=st.A.dtype, device=st.A.device)
-    new_carry, emit = fwd(carry0, (y.expand(J, -1), one))
+    ctx, spd, rhs = fwd.prepare(carry0, (y.expand(J, -1), one))
+    X = yield "solve", spd, rhs
+    new_carry, emit = fwd.finish(ctx, X)
     (_member, f_n, P_n, _A, _G, _S, _sm, f_smp, P_smp) = emit
     (_f, _P, f_prevF, P_prevF, A_f, G_f, C_f, S_f,
      mniw_f, n_f, *_aux) = new_carry
@@ -139,6 +170,162 @@ def _append_state(st: ClusterState, y, fwd) -> ClusterState:
     )
 
 
+def _unflatten(proto, leaves):
+    """A tree shaped like ``proto`` from an iterator of its leaves."""
+    if isinstance(proto, tuple):
+        items = [_unflatten(p, leaves) for p in proto]
+        return type(proto)(*items) if hasattr(proto, "_fields") \
+            else tuple(items)
+    return next(leaves)
+
+
+class Packing:
+    """A tree's layout as one flat buffer per dtype: each leaf is a view
+    of its dtype's buffer, at a fixed offset, in leaf order.
+
+    ``pack`` gathers a tree of this layout into fresh buffers (one
+    ``cat`` a dtype), ``unpack`` views buffers as the tree, and
+    ``copy_into`` copies a tree into buffers, one copy a dtype where
+    that dtype's leaves are the views ``unpack`` made of one buffer of
+    this layout or a longer one whose head it is, else leaf by leaf."""
+
+    def __init__(self, tree):
+        leaves = tree_leaves(tree)
+        self.proto = _unflatten(tree, iter([None] * len(leaves)))
+        self.slots = []                   # (dtype, offset, shape) a leaf
+        self.sizes = {}                   # dtype -> elements
+        self.groups = {}                  # dtype -> its leaves' indices
+        for i, leaf in enumerate(leaves):
+            off = self.sizes.get(leaf.dtype, 0)
+            self.slots.append((leaf.dtype, off, tuple(leaf.shape)))
+            self.sizes[leaf.dtype] = off + leaf.numel()
+            self.groups.setdefault(leaf.dtype, []).append(i)
+
+    def check(self, tree):
+        got = [(x.dtype, tuple(x.shape)) for x in tree_leaves(tree)]
+        want = [(d, shape) for d, _off, shape in self.slots]
+        if got != want:
+            raise ValueError(f"tree layout {got} is not {want}")
+
+    def pack(self, tree) -> dict:
+        self.check(tree)
+        parts = {d: [] for d in self.sizes}
+        for x in tree_leaves(tree):
+            parts[x.dtype].append(x.reshape(-1))
+        return {d: torch.cat(p) for d, p in parts.items()}
+
+    def unpack(self, flats: dict):
+        views = (flats[d][off:off + math.prod(shape)].view(shape)
+                 for d, off, shape in self.slots)
+        return _unflatten(self.proto, views)
+
+    def copy_into(self, flats: dict, tree) -> None:
+        """Copy ``tree`` into the buffers ``flats``."""
+        self.check(tree)
+        leaves = tree_leaves(tree)
+        views = None
+        for d, idx in self.groups.items():
+            n = self.sizes[d]
+            base = leaves[idx[0]]._base
+            if base is not None and base.dtype == d \
+                    and base.storage_offset() == 0 and base.ndim == 1 \
+                    and base.numel() >= n and all(
+                        leaves[i]._base is base and leaves[i].is_contiguous()
+                        and leaves[i].storage_offset() == self.slots[i][1]
+                        for i in idx):
+                flats[d].copy_(base[:n])
+            else:
+                views = views or tree_leaves(self.unpack(flats))
+                for i in idx:
+                    views[i].copy_(leaves[i])
+
+
+class BeatGraphs:
+    """One beat of the step as CUDA graphs, captured once from the beat
+    generator of ``build_stream_step``: a graph for each stretch of the
+    beat between two host actions (the three kernel B calls and the
+    ``need_fit`` read), five in all. The host actions stay eager
+    between the replays: kernel B through ``gplds.spd_solve``, looked
+    up at every call, its solution copied into the buffer the next
+    graph reads; the read, and on a first member the kernel fit, whose
+    state is copied into the gathered source state the commit reads.
+
+    The carry and the beat go in by copy into static buffers (the carry
+    packed by dtype, ``Packing``), and the graphs' output (the new carry
+    and the StepOut, packed the same way) comes out as a clone: the
+    step never writes a tensor it was given or has returned."""
+
+    def __init__(self, beat, carry, y, stream):
+        dev = y.device
+        self.pin = Packing(carry)
+        self.flat_in = {d: torch.empty(n, dtype=d, device=dev)
+                        for d, n in self.pin.sizes.items()}
+        self.carry = self.pin.unpack(self.flat_in)
+        self.y = torch.empty_like(y)
+        self.graphs = []
+        pool = torch.cuda.graph_pool_handle()
+
+        def capture():
+            g = torch.cuda.CUDAGraph()
+            self.graphs.append(g)
+            return torch.cuda.graph(g, pool=pool, stream=stream)
+
+        self.host, self.pout, self.flat_out = capture_segments(
+            beat(self.carry, self.y), capture)
+
+    def __call__(self, carry, y, fit_read):
+        with span("step.copy_in"):
+            self.pin.copy_into(self.flat_in, carry)
+            self.y.copy_(y)
+        for i, g in enumerate(self.graphs):
+            with span("step.seg", i + 1):
+                g.replay()
+            if i == len(self.host):
+                break
+            op, a, b, c = self.host[i]
+            if op == "solve":
+                c.copy_(gplds.spd_solve(a, b))
+            else:
+                new = fit_read(a, b, self.y)
+                if new is not None:
+                    tree_map(lambda dst, src: dst.copy_(src), b, new)
+        with span("step.copy_out"):
+            return self.pout.unpack({d: f.clone()
+                                     for d, f in self.flat_out.items()})
+
+
+def capture_segments(gen, capture):
+    """Run the beat generator ``gen`` once, each stretch between two of
+    its requests inside a fresh ``capture()`` context. Returns the host
+    actions, each ``(op, a, b, c)``: ``("solve", spd, rhs, X)`` with X
+    the buffer the next stretch reads the solution from, ``("fit",
+    need_fit, src, None)``; the output's ``Packing``; and the output
+    packed by it (a flat tensor a dtype), which the last stretch
+    writes."""
+    host, reply = [], None
+    while True:
+        with capture():
+            try:
+                msg = gen.send(reply)
+            except StopIteration as stop:
+                pout = Packing(stop.value)
+                return host, pout, pout.pack(stop.value)
+        op, a, b = msg
+        if op == "solve":
+            reply = torch.empty_like(b)
+            host.append((op, a, b, reply))
+        else:
+            reply = b
+            host.append((op, a, b, None))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _nospan(_name):
+    return _NO_SPAN
+
+
 def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
                       free_deg: float, trans_alpha: float,
                       start_alpha: float, kappa: float, gamma: float,
@@ -146,7 +333,13 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
                       fit_lr: float, max_models: int, dtype,
                       x_basis, bound_lo, bound_hi):
     """Build the per-beat step ``step(carry, y) -> (carry, StepOut)``;
-    y is one beat (T,) on the carry's device."""
+    y is one beat (T,) on the carry's device.
+
+    A beat on the CPU runs eagerly, op by op (``step.eager``). On a
+    CUDA device the first beat of a (K, T, dtype, device) runs eagerly
+    on a side stream, the second captures the beat's CUDA graphs there
+    (``BeatGraphs``) and every beat from then on replays them; a failed
+    capture raises."""
     limit = float("inf") if est_limit is None else float(est_limit)
     fwd_abs = make_forward_step(T, limit, annealing, True, True, True,
                                 False)
@@ -180,11 +373,28 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
         return gplds.stack_states([gplds.apply_kernel_fit(st, x_basis,
                                                           theta)])
 
-    def step(carry: StreamState, y: torch.Tensor):
-        with span("stream.step"):
-            return _step(carry, y)
+    def fit_read(need_fit, src, y):
+        """The beat's one host read; on a first member, the kernel fit
+        of ``src`` (its new state), else None."""
+        with span("step.fit_read"):
+            need = bool(need_fit)
+        if not need:
+            return None
+        with span("step.kernel_fit"):
+            t_fit = time.perf_counter()
+            new = fit(src, y)
+            if y.device.type == "cuda":
+                torch.cuda.synchronize(y.device)
+            step.fits += 1
+            step.fit_seconds += time.perf_counter() - t_fit
+        return new
 
-    def _step(carry: StreamState, y: torch.Tensor):
+    def beat(carry: StreamState, y: torch.Tensor, sp=_nospan):
+        """The beat as a generator of its host actions: it yields
+        ``("solve", spd, rhs)`` at each kernel B call and takes the
+        solution back, yields ``("fit", need_fit, src)`` before the
+        commit and takes the commit's source state back, and returns
+        ``(carry, StepOut)``. ``sp`` opens the sections' spans."""
         dev = y.device
         t, M = carry.t, carry.M
         ar = torch.arange(K, device=dev)
@@ -194,14 +404,14 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
         NEG = torch.full((), -1e30, dtype=dtype, device=dev)
 
         # ---- 1. scores against every cluster's last state ----
-        with span("step.score"):
+        with sp("step.score"):
             scores = torch.where(act, gplds.log_sq_error_last(states, y), NEG)
             m_best = torch.argmax(scores)
 
         # ---- 2. candidates: absorb into each slot, and the birth ----
-        with span("step.candidates"):
+        with sp("step.candidates"):
             ests = gplds.estimate_new(states, y).to(HDT)
-            cand = _append_state(states, y, fwd_abs)
+            cand = yield from _append_state(states, y, fwd_abs)
             vf_c, vp_c, vl_c = (v.to(HDT) for v in gplds.q_lat_tail(cand, 1.0))
             lds_cand = gplds.lds_param_elbo(cand, fd).to(HDT)
 
@@ -211,12 +421,12 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
                 0, torch.clamp(M - 1, min=0).reshape(1))
             btempl = gplds.reinit_cluster_state(_take(states, m_template), fd)
             est_b = gplds.estimate_new(btempl, y)[0]
-            b_state = _append_state(btempl, y, fwd_birth)
+            b_state = yield from _append_state(btempl, y, fwd_birth)
             vf_b5 = (gplds.q_lat_tail(b_state, 0.5)[0][0] * 5.0).to(HDT)
             lds_b = gplds.lds_param_elbo(b_state, fd)[0].to(HDT)
 
         # ---- 3. one-sample ELBO totals (masked elbo_Linears) ----
-        with span("step.elbo"):
+        with sp("step.elbo"):
             n_all = carry.n.to(HDT)
             tot_n = torch.sum(n_all)
             sum_lds_n = torch.sum(torch.where(carry.n > 0, carry.lds * n_all,
@@ -254,10 +464,10 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
 
         # ---- 4. decision: the first absorb candidate (in q-order) that
         # beats the birth total, else birth (GPI_HDP.py:2484-2541) ----
-        with span("step.decide"):
+        with sp("step.decide"):
             wins = (absorb_total > birth_total)[q_ord] & act
             any_win = torch.any(wins)
-            first_win = q_ord[torch.argmax(wins.to(torch.int8))]
+            first_win = _at(q_ord, torch.argmax(wins.to(torch.int8)))
             win = gate & any_win
             chosen_abs = torch.where(win, first_win, m_best)
             do_birth = gate & ~any_win
@@ -268,21 +478,12 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
         # current state; a birth's slot M still holds a pristine default
         # cluster (slots are never freed), so one gather covers both. A
         # first-ever member fits its kernel first (a host branch).
-        with span("step.commit"):
+        with sp("step.commit"):
             src = _take(states, slot1)
             need_fit = ~carry.fitted.index_select(0, slot1) \
                 & (carry.n.index_select(0, slot1) == 0)
-            with span("step.fit_read"):
-                need_fit = bool(need_fit)
-            if need_fit:
-                with span("step.kernel_fit"):
-                    t_fit = time.perf_counter()
-                    src = fit(src, y)
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize(dev)
-                    step.fits += 1
-                    step.fit_seconds += time.perf_counter() - t_fit
-            committed = _append_state(src, y, fwd_commit)
+            src = yield "fit", need_fit, src
+            committed = yield from _append_state(src, y, fwd_commit)
             lds_new = gplds.lds_param_elbo(committed, fd).to(HDT)
 
             states2 = tree_map(
@@ -295,14 +496,15 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
             lds2 = torch.where(at_slot, lds_new, carry.lds)
 
             # cache bookkeeping (selected sums + per-cluster last values)
-            ests_c = ests[chosen_abs]
+            ests_c = _at(ests, chosen_abs)
             q_add = torch.where(do_birth, est_b.to(HDT),
                                 torch.where(win, ests_c,
-                                            scores[chosen_abs].to(HDT)))
-            ptv_c = patch_t_val[chosen_abs]
+                                            _at(scores, chosen_abs).to(HDT)))
+            ptv_c = _at(patch_t_val, chosen_abs)
             zero = torch.zeros((), dtype=HDT, device=dev)
             qlat_add = torch.where(do_birth, vf_b5,
-                                   torch.where(win, ptv_c + d_prev[chosen_abs],
+                                   torch.where(win,
+                                               ptv_c + _at(d_prev, chosen_abs),
                                                zero))
             qlat_last2 = torch.where(
                 at_slot, torch.where(do_birth, vf_b5,
@@ -318,19 +520,19 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
                 (eK1[:, None] == src_row) & (eK1[None, :] == slot)).to(HDT)
             M2 = torch.where(do_birth, M + 1, M)
             uid_chosen = torch.where(do_birth, carry.uid_next,
-                                     carry.slot_uid[slot])
+                                     _at(carry.slot_uid, slot))
             slot_uid2 = torch.where(at_slot, uid_chosen, carry.slot_uid)
             uid_next2 = torch.where(do_birth, carry.uid_next + 1,
                                     carry.uid_next)
 
         # ---- 6. popularity reorder (GPI_HDP.reorder) ----
-        with span("step.reorder"):
+        with sp("step.reorder"):
             key = torch.where(ar < M2, -n2, K + 1 + ar)
             perm = torch.argsort(key, stable=True)
             inv = torch.argsort(perm, stable=True)
             permK1 = torch.cat([perm, torch.full((1,), K, device=dev,
                                                  dtype=perm.dtype)])
-            prev3 = inv[slot].to(torch.int32)
+            prev3 = _at(inv, slot).to(torch.int32)
 
             # ---- 7. deterministic HDP reinit (the L-BFGS refinement runs on
             # the host at chunk boundaries; GPI_HDP.py:2113-2141) ----
@@ -355,7 +557,51 @@ def build_stream_step(T: int, K: int, *, est_limit, annealing: bool,
         return new_carry, StepOut(uid=uid_chosen, slot=prev3,
                                   birth=do_birth, M=M2)
 
+    def eager(carry: StreamState, y: torch.Tensor):
+        """One beat launched op by op, with today's spans."""
+        count("stream.eager_beats")
+        with span("stream.step"):
+            gen = beat(carry, y, span)
+            reply = None
+            try:
+                while True:
+                    try:
+                        op, a, b = gen.send(reply)
+                    except StopIteration as stop:
+                        return stop.value
+                    if op == "solve":
+                        reply = gplds.spd_solve(a, b)
+                    else:
+                        new = fit_read(a, b, y)
+                        reply = b if new is None else new
+            finally:
+                gen.close()       # a raise above closes the beat's spans
+
+    graphs = {}     # (K, T, dtype, device) -> warm-up stream or BeatGraphs
+
+    def step(carry: StreamState, y: torch.Tensor):
+        if y.device.type != "cuda":
+            return eager(carry, y)
+        key = (carry.n.shape[0], y.shape[-1], y.dtype, y.device)
+        g = graphs.get(key)
+        if g is None:
+            # the warm-up beat, on the stream the capture will use, so
+            # that the libraries' handles and workspaces exist for it
+            s = torch.cuda.Stream(y.device)
+            s.wait_stream(torch.cuda.current_stream(y.device))
+            with torch.cuda.stream(s):
+                out = eager(carry, y)
+            torch.cuda.synchronize(y.device)
+            graphs[key] = s
+            return tuple(tree_map(torch.clone, t) for t in out)
+        if not isinstance(g, BeatGraphs):
+            g = graphs[key] = BeatGraphs(beat, carry, y, g)
+        count("stream.graph_beats")
+        with span("stream.step"):
+            return g(carry, y, fit_read)
+
     step.fits, step.fit_seconds = 0, 0.0
+    step.beat, step.eager, step.graphs = beat, eager, graphs
     return step
 
 

@@ -25,8 +25,9 @@ A run without the recorder is ``portbench/run.py``'s.
 Until the harness reads the recorder itself, this tool stands in for
 it: ``program_spans``, ``name_gaps`` and ``READ`` belong in
 ``portbench``, and the tool and its tests
-(``portbench/tests/test_portbench_trace_spans.py``) go when they are
-there.
+(``portbench/tests/test_portbench_trace_spans.py`` and
+``portbench/tests/test_portbench_trace_spans_graph.py``) go when they
+are there.
 """
 
 from __future__ import annotations
@@ -227,6 +228,25 @@ def refresh_host_ms(ctx) -> Optional[float]:
     return sum(_dur_s(s) for s in r) * 1e3 / len(r) if r else None
 
 
+def graph_beat_pct(ctx) -> Optional[float]:
+    """Beats replayed from the step's CUDA graphs over all beats."""
+    g = _counter(ctx, "stream.graph_beats")
+    n = None if g is None else g + _counter(ctx, "stream.eager_beats")
+    return 100.0 * g / n if n else None
+
+
+def step_ms(ctx, prefix) -> Optional[float]:
+    """Host time a beat in the graphed beat's spans named ``prefix``
+    (``step.seg`` takes every ``step.seg[i]``)."""
+    p = ctx.get("program")
+    beats = len(_spans(ctx, "stream.step"))
+    if not p or not beats:
+        return None
+    d = [_dur_s(s) for s in p["spans"]
+         if s["name"] == prefix or s["name"].startswith(prefix + "[")]
+    return sum(d) * 1e3 / beats if d else None
+
+
 READ = {
     "offline.orchestration_s": orchestration_s,
     "offline.refit_kernels_per_job": refit_kernels_per_job,
@@ -236,6 +256,10 @@ READ = {
     "stream.beat_p95_ms": lambda c: beat_ms(c, 95),
     "stream.fit_read_ms": fit_read_ms,
     "stream.refresh_host_ms": refresh_host_ms,
+    "stream.graph_beat_pct": graph_beat_pct,
+    "stream.copy_in_ms": lambda c: step_ms(c, "step.copy_in"),
+    "stream.replay_ms": lambda c: step_ms(c, "step.seg"),
+    "stream.copy_out_ms": lambda c: step_ms(c, "step.copy_out"),
 }
 
 
