@@ -25,6 +25,13 @@ ONE call, ``ops.spd_solve.spd_solve`` on (4 J, T, T): kernel B on the
 card. The other Choleskys (MNIW mean, the frozen tail, the scoring)
 stay ``torch.linalg`` as they were XLA in the reference.
 
+While the recorder of utils/metrics is on, the refit counts
+``refit.head_slots`` (J x the slots of the sequential scan) and
+``refit.tail_slots`` (J x the frozen tail's slots past the estimation
+limit), padding included, and spans the tail's ``refit.tail_filter``
+and ``refit.tail_smooth`` (float64) or ``refit.tail_steady`` (float32,
+whose hybrid refit needs a tail of 128 slots or more).
+
 Reference semantics preserved (see hdpgpc_tpu.models.gplds):
 
 * scores omit the log-determinant (GPI_model.py:92-113, :250-286);
@@ -53,6 +60,7 @@ from hdpgpc_torch.ops.kalman import LDSParams, kalman_step, rts_pair
 from hdpgpc_torch.ops.kernels import KernelParams, gram
 from hdpgpc_torch.ops.scan import associative_scan
 from hdpgpc_torch.ops.spd_solve import spd_solve
+from hdpgpc_torch.utils.metrics import count, span
 
 LOG2PI = linalg.LOG2PI
 # beats (emission scores) and member slots (latent scores) a scoring
@@ -695,6 +703,8 @@ def build_refit(T: int, est_limit: Optional[int] = None,
             # tail: past slot E_int every update condition is False
             Hh = E_int
             Bt = Bs - Hh
+            count("refit.head_slots", Jn * Hh)
+            count("refit.tail_slots", Jn * Bt)
             carryF, emitsH = _run_forward(forward_step, carry0,
                                           Y_s[:, :Hh], m_s[:, :Hh])
             (f_lastF, P_lastF, f_prevF, P_prevF, A_f, G_f, C_f, S_f,
@@ -706,15 +716,18 @@ def build_refit(T: int, est_limit: Optional[int] = None,
             anchor = (Hh + torch.arange(Bt, device=dev))[None] \
                 >= (mb_all - 1)[:, None]
             if dtype == torch.float32 and Bt >= 128:
-                f_filt_t, P_filt_t, f_sm_t, P_sm_t = _tail_steady(
-                    Y_s[:, Hh:], member_t, f_lastF, P_lastF,
-                    A_f, G_f, C_f, S_f, anchor)
+                with span("refit.tail_steady"):
+                    f_filt_t, P_filt_t, f_sm_t, P_sm_t = _tail_steady(
+                        Y_s[:, Hh:], member_t, f_lastF, P_lastF,
+                        A_f, G_f, C_f, S_f, anchor)
             else:
-                f_filt_t, P_filt_t = _tail_filter(
-                    Y_s[:, Hh:], member_t, f_lastF, P_lastF,
-                    A_f, G_f, C_f, S_f)
-                f_sm_t, P_sm_t = _tail_smooth(f_filt_t, P_filt_t,
-                                              A_f, G_f, anchor)
+                with span("refit.tail_filter"):
+                    f_filt_t, P_filt_t = _tail_filter(
+                        Y_s[:, Hh:], member_t, f_lastF, P_lastF,
+                        A_f, G_f, C_f, S_f)
+                with span("refit.tail_smooth"):
+                    f_sm_t, P_sm_t = _tail_smooth(f_filt_t, P_filt_t,
+                                                  A_f, G_f, anchor)
             has_tail = mb_all > Hh
             carryB0 = (_w(has_tail, f_sm_t[:, 0], f_lastF),
                        _w(has_tail, P_sm_t[:, 0], P_lastF), has_tail)
@@ -739,6 +752,7 @@ def build_refit(T: int, est_limit: Optional[int] = None,
             f_prevF = _w(mb_all > Hh, _take1(f_filt, idxp), f_prevF)
             P_prevF = _w(mb_all > Hh, _take1(P_filt, idxp), P_prevF)
         else:
+            count("refit.head_slots", Jn * Bs)
             carryF, emits = _run_forward(forward_step, carry0, Y_s, m_s)
             (member, f_filt, P_filt, A_seq, G_seq, S_seq,
              score_mean) = emits[:7]

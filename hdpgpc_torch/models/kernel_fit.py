@@ -41,6 +41,7 @@ import torch
 from hdpgpc_torch.device import DEFAULT_DEVICE, resolve_device
 from hdpgpc_torch.ops import linalg
 from hdpgpc_torch.ops.kernels import KernelParams
+from hdpgpc_torch.utils.metrics import count, span
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 # how often (in iterations, past the 1000-iteration plateau floor) the
@@ -99,7 +100,20 @@ def _nll(raw_s, raw_l, raw_n, c, n_lb, n_ub, x, y):
 
 def _adam_fit(x, Ys, n_lb, n_ub, max_iters: int, lr: float):
     """Adam over B independent lanes; a lane stops (and is frozen) at
-    its own plateau, so every lane equals its solo fit."""
+    its own plateau, so every lane equals its solo fit. While the
+    recorder of utils/metrics is on: a span ``kernel_fit.adam[B]`` and
+    the counters ``kernel_fit.steps`` (the steps the loop ran) and
+    ``kernel_fit.lanes`` (B)."""
+    B = Ys.shape[0]
+    with span("kernel_fit.adam", B):
+        s, n, steps = _adam_loop(x, Ys, n_lb, n_ub, max_iters, lr)
+    count("kernel_fit.steps", steps)
+    count("kernel_fit.lanes", B)
+    return s, n
+
+
+def _adam_loop(x, Ys, n_lb, n_ub, max_iters: int, lr: float):
+    """``_adam_fit``'s loop: (outputscale, noise, steps run)."""
     B = Ys.shape[0]
     dt, dev = x.dtype, x.device
     params = [torch.zeros(B, dtype=dt, device=dev) for _ in range(4)]
@@ -108,7 +122,9 @@ def _adam_fit(x, Ys, n_lb, n_ub, max_iters: int, lr: float):
     count = torch.zeros(B, dtype=torch.int64, device=dev)
     buf = torch.zeros((B, 11), dtype=dt, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
+    steps = 0
     for it in range(max_iters):
+        steps = it + 1
         tp = [p.detach().requires_grad_(True) for p in params]
         loss = _nll(*tp, n_lb, n_ub, x, Ys)
         grads = torch.autograd.grad(loss.sum(), tp)
@@ -134,7 +150,7 @@ def _adam_fit(x, Ys, n_lb, n_ub, max_iters: int, lr: float):
             if (it - 1000) % _CHECK_EVERY == 0 and bool(done.all()):
                 break
     raw_s, _raw_l, raw_n, _c = params
-    return _softplus(raw_s), _interval(raw_n, n_lb, n_ub)
+    return _softplus(raw_s), _interval(raw_n, n_lb, n_ub), steps
 
 
 def fit_kernel(x_basis, y, bound_sigma: Tuple[float, float],

@@ -201,7 +201,7 @@ def test_sweep_spans_nest(sweeps, key):
     assert {"refit_batch", "fb", "kernel_fit", "q_elbo",
             "hdp_update"} <= set(names)
     for n in set(names) - KEYS - {"sweep"}:
-        assert n.startswith(PHASES + ("refit[",)), n
+        assert n.startswith(PHASES + ("refit[", "kernel_fit.adam[")), n
 
 
 def test_sweep_counters(sweeps):
@@ -252,6 +252,8 @@ def test_engine_spans(sweeps):
             assert parent == "stream.step"
         elif s["name"] in ("step.fit_read", "step.kernel_fit"):
             assert parent == "step.commit"
+        elif s["name"].startswith("kernel_fit.adam["):
+            assert parent == "step.kernel_fit"
         elif s["name"].startswith("refresh."):
             assert parent == "stream.refresh"
         else:
